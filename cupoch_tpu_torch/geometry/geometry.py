@@ -1,0 +1,68 @@
+"""Geometry base classes (cupoch geometry/geometry.h).
+
+Containers hold `torch.Tensor` fields on one device; computation lives
+in the functions of `knn` and `registration`.
+"""
+from __future__ import annotations
+
+import enum
+
+import numpy as np
+import torch
+
+from ..utility.device import resolve_device
+
+
+class GeometryType(enum.IntEnum):
+    """Matches cupoch's geometry.h values."""
+
+    Unspecified = 0
+    PointCloud = 1
+    VoxelGrid = 2
+    OccupancyGrid = 3
+    DistanceTransform = 4
+    LineSet = 5
+    Graph = 6
+    MeshBase = 7
+    TriangleMesh = 8
+    Image = 9
+    RGBDImage = 10
+    Map2D = 11
+    OrientedBoundingBox = 12
+    AxisAlignedBoundingBox = 13
+    LaserScanBuffer = 14
+
+
+def as_f32(x, device: torch.device, shape_suffix=(3,)) -> torch.Tensor:
+    """Coerce input (list / numpy / tensor) to float32 [N, *suffix] on
+    `device`."""
+    if isinstance(x, torch.Tensor):
+        a = x.to(device=device, dtype=torch.float32)
+    else:
+        a = torch.as_tensor(np.asarray(x, np.float32), device=device)
+    if a.ndim == 1 and a.numel() == 0:
+        a = a.reshape((0,) + tuple(shape_suffix))
+    return a
+
+
+class Geometry:
+    def __init__(self, geometry_type: GeometryType, dimension: int):
+        self._geometry_type = GeometryType(geometry_type)
+        self._dimension = dimension
+
+    def get_geometry_type(self) -> GeometryType:
+        return self._geometry_type
+
+    def dimension(self) -> int:
+        return self._dimension
+
+
+class Geometry3D(Geometry):
+    """Base for 3D geometries on one device (`device` defaults to
+    "cuda", which must then be available). The bound and transform
+    methods of the JAX package's base come with the slices that use
+    them."""
+
+    def __init__(self, geometry_type: GeometryType, device=None):
+        super().__init__(geometry_type, 3)
+        self.device = resolve_device(device)

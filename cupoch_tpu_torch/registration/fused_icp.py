@@ -1,0 +1,202 @@
+"""Pooled-grid ICP loop (cupoch RegistrationICP, registration.cu).
+
+Each iteration is one pass over the pooled grid (`knn/poolgrid.py`):
+the slot kernel picks correspondences, the epilogue reduces the
+Gauss-Newton (or Kabsch) sums on the device, and only those 32 floats
+come back to the host. The loop is a Python loop: every iteration
+reads the sums, and the host decides whether to re-bin (the pose has
+moved past the grid margin since the last binning, bounded exactly
+over the source AABB corners), forms the 6x6 solve or the 3x3 Kabsch
+SVD in f32, composes the pose and tests convergence. So the pose, the
+re-binning bound and the solve live on the host, where their few
+hundred scalar operations cost microseconds; the point clouds, the
+grid and both passes stay on the device.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..knn import poolgrid, rungrid
+from ..utility import eigen as ueigen
+from ..utility.transforms import make_transform
+from .estimation import TransformationEstimationType
+
+_HOST = torch.device("cpu")
+
+
+def _displacement_bound(T, T_bin, corners):
+    """max_x in AABB |(T - T_bin) @ [x,1]|: affine in x, so the max
+    over the box is attained at a corner. corners: [8, 3]."""
+    D = T - T_bin
+    d = corners @ D[:3, :3].T + D[:3, 3]
+    return torch.sqrt((d * d).sum(-1).max())
+
+
+def _aabb_corners(src, src_mask):
+    big = 1e30
+    lo = torch.where(src_mask[:, None], src, big).min(0).values
+    hi = torch.where(src_mask[:, None], src, -big).max(0).values
+    return torch.stack([
+        torch.stack([hi[0] if i & 1 else lo[0],
+                     hi[1] if i & 2 else lo[1],
+                     hi[2] if i & 4 else lo[2]])
+        for i in range(8)])
+
+
+def _est_code(est_type: TransformationEstimationType) -> int:
+    return {
+        TransformationEstimationType.PointToPoint: rungrid.EST_PT2PT,
+        TransformationEstimationType.PointToPlane: rungrid.EST_PT2PL,
+        TransformationEstimationType.SymmetricMethod: rungrid.EST_SYM,
+        TransformationEstimationType.ColoredICP: poolgrid.EST_COLORED,
+        TransformationEstimationType.GeneralizedICP: poolgrid.EST_GICP,
+    }[est_type]
+
+
+def cov_upper6(cov):
+    """[N, 3, 3] symmetric -> [N, 6] upper triangle (c00, c01, c02,
+    c11, c12, c22)."""
+    return torch.stack([cov[:, 0, 0], cov[:, 0, 1], cov[:, 0, 2],
+                        cov[:, 1, 1], cov[:, 1, 2], cov[:, 2, 2]], -1)
+
+
+def make_target_attrs(est_type, tgt_pts, tgt_normals, tgt_aux=None):
+    """Per-target attribute channels for the grid build; returns
+    (attrs, est_code).
+
+    tgt_aux: ColoredICP: dict with "intensity" [M] and "gradient"
+    [M, 3]; GeneralizedICP: dict with "cov" [M, 3, 3]."""
+    est = _est_code(est_type)
+    if est_type == TransformationEstimationType.PointToPoint:
+        return tgt_pts.new_zeros((tgt_pts.shape[0], 0)), est
+    if est_type == TransformationEstimationType.PointToPlane:
+        d = (tgt_normals * tgt_pts).sum(-1, keepdim=True)
+        return torch.cat([tgt_normals, d], -1), est
+    if est_type == TransformationEstimationType.SymmetricMethod:
+        return tgt_normals, est
+    if est_type == TransformationEstimationType.ColoredICP:
+        return torch.cat([tgt_normals, tgt_aux["intensity"][:, None],
+                          tgt_aux["gradient"]], -1), est
+    if est_type == TransformationEstimationType.GeneralizedICP:
+        return cov_upper6(tgt_aux["cov"]), est
+    raise ValueError(f"unsupported estimator {est_type}")
+
+
+def kabsch_from_sums(sums) -> torch.Tensor:
+    """Weighted Kabsch update from the reduced statistics (slot layout:
+    rungrid.N_SUMS)."""
+    cnt = sums[0].clamp(min=1e-12)
+    t_mean = sums[1:4] / cnt
+    p_mean = sums[4:7] / cnt
+    H = sums[7:16].reshape(3, 3) / cnt - torch.outer(t_mean, p_mean)
+    U, S, Vh = torch.linalg.svd(H)
+    V = Vh.T
+    det = torch.linalg.det(V @ U.T)
+    D = torch.diag(torch.stack([det.new_ones(()), det.new_ones(()), det]))
+    R = (V @ D) @ U.T
+    t = p_mean - R @ t_mean
+    T = make_transform(R, t)
+    ok = (sums[0] >= 3) & torch.isfinite(T).all()
+    return torch.where(ok, T, torch.eye(4, dtype=T.dtype, device=T.device))
+
+
+def gn_from_sums(sums) -> torch.Tensor:
+    """6-DoF GN update from the JTJ/JTr sums."""
+    iu = torch.triu_indices(6, 6, device=sums.device)
+    JTJ = sums.new_zeros((6, 6))
+    JTJ[iu[0], iu[1]] = sums[:21]
+    JTJ = JTJ + torch.triu(JTJ, 1).T
+    ok, T = ueigen.solve_jacobian_system(JTJ, sums[21:27])
+    return T
+
+
+def _update_from_sums(est_type, sums):
+    if est_type == TransformationEstimationType.PointToPoint:
+        return kabsch_from_sums(sums)
+    return gn_from_sums(sums)
+
+
+def _stats_from_sums(est_type, sums, n_src):
+    if est_type == TransformationEstimationType.PointToPoint:
+        cnt, err = sums[0], sums[16]
+    else:
+        cnt, err = sums[27], sums[28]
+    fit = cnt / n_src
+    rmse = torch.sqrt(err / cnt.clamp(min=1.0))
+    rmse = torch.where(cnt > 0, rmse, 0.0)
+    return fit, rmse
+
+
+def icp_core_pool(src, src_mask, src_aux, grid: poolgrid.PoolGrid,
+                  init_T, max_dist, rebin_margin, relative_fitness,
+                  relative_rmse, qp: int,
+                  est_type: TransformationEstimationType,
+                  max_iteration: int):
+    """Pooled-grid ICP loop on the device of `src` and `grid`.
+
+    src [Np, 3] padded source points, src_mask [Np], src_aux [Np, E]
+    estimator extras (SYM: source normals). Returns (T [4, 4] f32 on
+    the host, idx [Np] int32 on the device (-1 none), fitness, rmse
+    (0-d tensors on the device), iterations run, n_dropped_queries
+    (0-d tensor, the max over every binning))."""
+    Np = src.shape[0]
+    est = _est_code(est_type)
+    n_src = src_mask.sum().to(torch.float32).clamp(min=1.0).to(_HOST)
+    n_extra = poolgrid.n_query_extra(est)
+    corners = _aabb_corners(src, src_mask).to(_HOST)
+    r2 = torch.tensor(max_dist, dtype=torch.float32) ** 2
+    margin = float(np.float32(rebin_margin))
+    rel_fit = torch.tensor(relative_fitness, dtype=torch.float32)
+    rel_rmse = torch.tensor(relative_rmse, dtype=torch.float32)
+
+    def rebin(T):
+        return poolgrid.bin_queries_pool(
+            src, T, grid.origin, grid.cell_size, grid.dims, qp, grid.tile,
+            extra=src_aux, n_extra=n_extra, mask=src_mask,
+            cell_map=grid.cell_map, n_rank_pad=grid.n_tiles * grid.tile)
+
+    T = torch.as_tensor(init_T, dtype=torch.float32).to(_HOST)
+    T_bin = T
+    qpool, qidx, nq = rebin(T)
+    fit = rmse = torch.tensor(-1.0)
+    it = 0
+    while it < max_iteration:
+        if _displacement_bound(T, T_bin, corners) > margin:
+            qpool, qidx, nq2 = rebin(T)
+            T_bin = T
+            nq = torch.maximum(nq, nq2)
+        params = poolgrid.make_params(T, r2, grid)
+        sums = poolgrid.fused_pool_query(grid, qpool, params, est,
+                                         False).to(_HOST)
+        fit2, rmse2 = _stats_from_sums(est_type, sums, n_src)
+        converged = bool(((fit - fit2).abs() < rel_fit)
+                         & ((rmse - rmse2).abs() < rel_rmse)) and it > 0
+        it += 1
+        if converged:
+            break
+        T = _update_from_sums(est_type, sums) @ T
+        fit, rmse = fit2, rmse2
+
+    # final evaluation at the returned transform, in exact mode
+    if _displacement_bound(T, T_bin, corners) > margin:
+        qpool, qidx, nqf = rebin(T)
+        nq = torch.maximum(nq, nqf)
+    params = poolgrid.make_params(T, r2, grid)
+    d2, idxf = poolgrid.fused_pool_query(grid, qpool, params, est, True)
+    ok = torch.isfinite(d2) & (qidx >= 0)
+    cnt = ok.sum().to(torch.float32)
+    err = torch.where(ok, d2, 0.0).sum()
+    fit = cnt / n_src.to(cnt.device)
+    rmse = torch.where(cnt > 0, torch.sqrt(err / cnt.clamp(min=1.0)), 0.0)
+
+    # scatter correspondence indices back to source order
+    idx_bin = torch.where(ok, idxf, rungrid.INVALID_INDEX)
+    flat_q = qidx.reshape(-1)
+    okq = flat_q >= 0
+    slot = torch.where(okq, flat_q, Np).long()
+    idx_src = torch.full((Np + 1,), rungrid.INVALID_INDEX,
+                         dtype=torch.int32, device=src.device)
+    idx_src[slot] = torch.where(okq, idx_bin.reshape(-1),
+                                rungrid.INVALID_INDEX)
+    return T, idx_src[:Np], fit, rmse, it, nq

@@ -7,19 +7,39 @@ Hopper card and the CUDA toolkit:
 
 Phases, each printed on its own line:
   1. the card's name and power limit, as nvidia-smi prints them;
-  2. build: compiles every kernel under cupoch_tpu_torch/csrc with nvcc;
-  3. kernel: at the headline grid and pool (1M points in [0,2]^3,
-     radius 0.05), the slot kernel against its plain PyTorch version in
-     the Gauss-Newton configuration (identity pose) and in the exact
-     configuration (the true pose), with times and the roofline bound;
-  4. main path: the port's public `registration_icp` (point-to-plane,
-     20 iterations, relative tolerance 1e-6) on that cloud and a
-     rotated copy, held to the true pose; the launch count must equal
-     iterations + 1; then the grid build and the ICP loop on a prebuilt
-     grid are timed and profiled (device time by kernel and the
-     device's busy share), and small registrations on the card (a volume
-     cloud on a dense grid, a surface cloud on a compact grid) are held
-     against the same calls on the CPU (the plain path);
+  2. build: compiles every kernel under cupoch_tpu_torch/csrc with nvcc,
+     one process per source, all at once;
+  3. kernels, each against its plain PyTorch version on the same inputs,
+     with times and the roofline bound:
+     - the pooled-grid slot kernel at the headline grid (1M points in
+       [0,2]^3, radius 0.05), in the Gauss-Newton configuration
+       (identity pose) and in the exact one (the true pose);
+     - the run-grid fused kernel in correspondence mode at the plan
+       `evaluate_registration` makes for the headline pair, and in
+       Gauss-Newton mode for point-to-point, point-to-plane and
+       symmetric at the plan of the run-grid ICP fallback (1M points in
+       [0,1.4]^3, whose pool plan is rejected);
+     - the run-grid Gaussian-moment kernel at the FilterReg plan (the
+       geometry of tests/test_filterreg.py scaled to 1M points);
+  4. paths, each through the public entry with every launch count set
+     to 0 just before it and read just after:
+     - `registration_icp` (point-to-plane, 20 iterations, relative
+       tolerance 1e-6) on the headline pair, held to the true pose
+       (slot launches = iterations + 1); then the grid build and the
+       loop on a prebuilt grid are timed and profiled (device time by
+       kernel, the device's busy share);
+     - `evaluate_registration` on the headline pair at the true pose
+       (one correspondence launch), and at the ICP result's pose against
+       that result's correspondences;
+     - `registration_icp` on the [0,1.4]^3 cloud: the run-grid fallback
+       (Gauss-Newton launches = iterations, one correspondence launch),
+       then its loop on a prebuilt grid timed and profiled;
+     - `registration_filterreg` on the scaled FilterReg pair (moment
+       launches = its E-steps);
+     - small inputs, the card against the port's CPU path (the plain
+       versions): pooled ICP on a volume and a surface cloud, brute-force
+       ICP, `evaluate_registration` on both branches, the run-grid
+       fallback and grid FilterReg;
   5. one JSON line of per-kernel numbers, then the result line.
 
 Any failure raises and exits non-zero. Without a card it exits
@@ -41,25 +61,54 @@ REL_TOL = 1e-6
 POSE_TOL = 1e-3
 AGREE_MIN = 0.999
 TIMED_LAUNCHES = 20
+FALLBACK_SIDE = 1.4          # [0,1.4]^3: the pool plan needs a cap > 128
+GN_REL_TOL = 1e-4            # kernel vs plain GN sums, per group
+# the run grid's d2 is the f32 expansion |c|^2 - 2 e.c + |e|^2 with c, e
+# up to 1.5 cells from the cell centre: its rounding is a few ulp of
+# (1.5 cell)^2, about 1e-8 at the evaluate plan's 0.05 cells, which is
+# sqrt(1e-8) = 1e-4 in distance at worst and about 2e-5 in the rmse of
+# a perfect alignment
+EVAL_D2_NOISE = 1e-8
+EVAL_RMSE_MAX = 5e-5
+GMM_RTOL, GMM_ATOL = 2e-5, 1e-5
+NO_LIBRARY = ("no single PyTorch call computes a sorted-lane masked argmin "
+              "with a packed-attribute fetch, or these truncated moments")
 
 
-def _headline_clouds(np, n):
-    """bench.py's headline cloud: n uniform points in [0,2]^3 with unit
-    normals, and the source it rotates by 0.02 rad about z and shifts;
-    returns (tgt, normals, src, true pose)."""
-    rng = np.random.default_rng(0)
-    tgt = rng.uniform(size=(n, 3)).astype(np.float32) * 2.0
+def _rot_z(np, ang):
+    return np.asarray([[np.cos(ang), -np.sin(ang), 0],
+                       [np.sin(ang), np.cos(ang), 0], [0, 0, 1]], np.float32)
+
+
+def _headline_clouds(np, n, side=2.0, seed=0):
+    """bench.py's headline cloud: n uniform points in [0,side]^3 with
+    unit normals, and the source it rotates by 0.02 rad about z and
+    shifts; returns (tgt, normals, src, true pose)."""
+    rng = np.random.default_rng(seed)
+    tgt = rng.uniform(size=(n, 3)).astype(np.float32) * np.float32(side)
     tn = rng.normal(size=(n, 3)).astype(np.float32)
     tn /= np.linalg.norm(tn, axis=1, keepdims=True)
-    ang = 0.02
-    R = np.asarray([[np.cos(ang), -np.sin(ang), 0],
-                    [np.sin(ang), np.cos(ang), 0], [0, 0, 1]], np.float32)
+    R = _rot_z(np, 0.02)
     t = np.float32([0.01, -0.02, 0.005])
     src = (tgt - t) @ R
     T = np.eye(4, dtype=np.float32)
     T[:3, :3] = R
     T[:3, 3] = t
     return tgt, tn, src, T
+
+
+def _filterreg_pair(np, n, seed=2):
+    """tests/test_filterreg.py's grid case (3000 points in [0,1]^3,
+    sigma_initial 0.08, shift (0.02, -0.015, 0.01)) with n points in
+    [0,1]^3, every length scaled by (3000/n)^(1/3) so the cell
+    occupancy stays the same: (src, tgt, sigma_initial, true pose)."""
+    s = (3000 / n) ** (1.0 / 3.0)
+    rng = np.random.default_rng(seed)
+    tgt = rng.uniform(size=(n, 3)).astype(np.float32)
+    t = np.float32([0.02, -0.015, 0.01]) * np.float32(s)
+    T = np.eye(4, dtype=np.float32)
+    T[:3, 3] = t
+    return tgt - t, tgt, 0.08 * s, T
 
 
 def _surface_pair(np, n=40_000):
@@ -87,6 +136,12 @@ def _time_ms(torch, fn, reps):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _bound(n_bytes, n_ops):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def _scores(torch, grid, qpool, params, slot):
@@ -137,21 +192,176 @@ def check_slot_kernel(torch, poolgrid, poolgrid_slot, grid, qpool, params,
     G, CH, QP = qpool.shape
     n_bytes = grid.table.numel() * 4 + 7 * G * QP * 4 + G * QP * 4
     n_ops = n_valid * 27 * grid.cap * 7
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    bound_ms, bound_by = _bound(n_bytes, n_ops)
     rec = {"mode": mode, "equal": same, "max_abs_err": max_err,
-           "ms": kernel_ms, "plain_ms": plain_ms,
-           "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "bytes": n_bytes, "ops": n_ops, "valid_queries": n_valid}
-    print(f"kernel[{mode}]: slots equal on {same:.6f} of {n_valid} valid "
-          f"queries, max score gap {max_err}; kernel {kernel_ms:.4f} ms, "
-          f"plain {plain_ms:.2f} ms, bound {rec['bound_ms']:.4f} ms by "
-          f"{rec['bound_by']} ({n_bytes / 1e9:.3f} GB, "
-          f"{n_ops / 1e9:.2f} G ops); library_ms null: no single "
-          f"PyTorch call computes a per-cell packed-key argmin over a "
-          f"gathered candidate row")
+           "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "bytes": n_bytes, "ops": n_ops,
+           "valid_queries": n_valid}
+    print(f"kernel[slot {mode}]: slots equal on {same:.6f} of {n_valid} "
+          f"valid queries, max score gap {max_err}; kernel {kernel_ms:.4f} "
+          f"ms, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms by "
+          f"{bound_by} ({n_bytes / 1e9:.3f} GB, {n_ops / 1e9:.2f} G ops); "
+          f"library_ms null: no single PyTorch call computes a per-cell "
+          f"packed-key argmin over a gathered candidate row")
     return rec
+
+
+def _rungrid_need(torch, rungrid, grid, qsoa, qidx, params, dist,
+                  words_per_lane, out_bytes, ops_per_lane):
+    """(bytes, operations, lanes a valid query scans) that a run-grid
+    pass must move and do for this run's data. Lanes are sorted by |c|
+    from the cell centre and window w's least |c| is bounds[w], so a
+    query at |e| from the centre must look at window w only when
+    bounds[w] <= dist + |e|, with `dist` [Cp, qcap] its distance to the
+    nearest candidate (clamped to r) for a 1-NN search, or r for the
+    truncated moments. Bytes: qidx of every cell; for each cell holding
+    a valid query, the windows its farthest-reaching query needs (16
+    bytes a lane, plus 4 a word channel) and the cell's window bounds;
+    the query rows of the valid queries; the outputs. Operations:
+    `ops_per_lane` per (valid query, lane of the windows it needs)."""
+    cp, nq, qcap = qsoa.shape
+    p = params
+    cen = rungrid.cell_centers(grid.dims, p[13:16], p[16], cp)
+    q = qsoa[:, :3]
+    e = torch.stack([p[3 * i] * q[:, 0] + p[3 * i + 1] * q[:, 1]
+                     + p[3 * i + 2] * q[:, 2] + p[9 + i] - cen[:, i, None]
+                     for i in range(3)], 1)
+    reach = dist + e.norm(dim=1)                              # [cp, qcap]
+    valid = qidx >= 0
+    windows = torch.where(
+        valid, (grid.bounds[:, None, :] <= reach[..., None]).sum(-1), 0)
+    n_valid = int(valid.sum())
+    busy = int(valid.any(1).sum())
+    row_lanes = int(windows.max(1).values.sum()) * rungrid.WINDOW
+    lanes = int(windows.sum()) * rungrid.WINDOW
+    n_bytes = (qidx.numel() * 4 + row_lanes * (16 + 4 * words_per_lane)
+               + busy * grid.n_windows * 4 + n_valid * nq * 4 + out_bytes)
+    return n_bytes, lanes * ops_per_lane, lanes / max(n_valid, 1)
+
+
+def check_fused_corres(torch, rungrid, rungrid_fused, grid, qsoa, qidx,
+                       params):
+    """Kernel 2 in correspondence mode against fused_plain."""
+    d2k, nik = rungrid_fused.fused_query(grid, qsoa, qidx, params, 0, True)
+    d2p, nip = rungrid_fused.fused_plain(grid, qsoa, qidx, params, 0, True)
+    torch.cuda.synchronize()
+    valid = qidx >= 0
+    n_valid = int(valid.sum())
+    if not torch.equal(torch.isfinite(d2k), torch.isfinite(d2p)):
+        raise AssertionError("fused corres: kernel and plain disagree on "
+                             "which queries found a candidate")
+    same = float(((nik == nip) & valid).sum()) / max(n_valid, 1)
+    fin = torch.isfinite(d2p)
+    gap = torch.where(fin, (d2k - d2p).abs(), 0.0)
+    ulp = torch.nextafter(d2p.abs(), torch.tensor(float("inf"),
+                                                  device=d2p.device)) \
+        - d2p.abs()
+    worst = float(torch.where(fin, gap - ulp, 0.0).max())
+    max_err = float(gap.max())
+    if same < AGREE_MIN or worst > 0:
+        raise AssertionError(f"fused corres: winners equal on {same:.6f}, "
+                             f"max d2 gap {max_err} beyond 1 ulp")
+    ms = _time_ms(torch, lambda: rungrid_fused.fused_query(
+        grid, qsoa, qidx, params, 0, True), TIMED_LAUNCHES)
+    plain_ms = _time_ms(torch, lambda: rungrid_fused.fused_plain(
+        grid, qsoa, qidx, params, 0, True), 3)
+    cp, _, qcap = qsoa.shape
+    n_bytes, n_ops, lanes = _rungrid_need(
+        torch, rungrid, grid, qsoa, qidx, params,
+        torch.sqrt(torch.minimum(d2p, params[12])), 1, 2 * cp * qcap * 4, 7)
+    bound_ms, bound_by = _bound(n_bytes, n_ops)
+    print(f"kernel[fused corres]: cells {cp} qcap {qcap} kc {grid.kc}; "
+          f"winners equal on {same:.6f} of {n_valid} valid queries, max d2 "
+          f"gap {max_err}; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+          f"bound {bound_ms:.4f} ms by {bound_by} ({n_bytes / 1e9:.3f} GB, "
+          f"{n_ops / 1e9:.2f} G ops, {lanes:.0f} lanes a query); "
+          f"library_ms null: {NO_LIBRARY}")
+    return {"mode": "corres", "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "equal": same}
+
+
+def check_fused_gn(torch, rungrid, rungrid_fused, fused_icp, est_type, grid,
+                   qsoa, qidx, params):
+    """Kernel 2 in Gauss-Newton mode against fused_plain: the count sums
+    equal, every other sum within GN_REL_TOL of its group's largest
+    magnitude, and the pose updates from both within 1e-5."""
+    est = grid.est
+    sk = rungrid_fused.fused_query(grid, qsoa, qidx, params, est, False)
+    sp = rungrid_fused.fused_plain(grid, qsoa, qidx, params, est, False)
+    sk, sp = sk.cpu(), sp.cpu()
+    if est == 1:    # Kabsch layout: count, sum t, sum p, sum t p^T, err
+        count, groups = 0, [(1, 4), (4, 7), (7, 16), (16, 17)]
+    else:           # JTJ, JTr, count, err
+        count, groups = 27, [(0, 21), (21, 27), (28, 29)]
+    if sk[count] != sp[count] or sp[count] < 1:
+        raise AssertionError(f"fused GN ({est_type.name}): counts "
+                             f"{float(sk[count])} vs {float(sp[count])}")
+    rel = 0.0
+    for a, b in groups:
+        scale = float(sp[a:b].abs().max())
+        rel = max(rel, float((sk[a:b] - sp[a:b]).abs().max()) / scale)
+    d_pose = float((fused_icp._update_from_sums(est_type, sk)
+                    - fused_icp._update_from_sums(est_type, sp)).abs().max())
+    if rel > GN_REL_TOL or d_pose > 1e-5:
+        raise AssertionError(f"fused GN ({est_type.name}): sums differ by "
+                             f"{rel} of their group, pose updates by "
+                             f"{d_pose}")
+    ms = _time_ms(torch, lambda: rungrid_fused.fused_query(
+        grid, qsoa, qidx, params, est, False), TIMED_LAUNCHES)
+    plain_ms = _time_ms(torch, lambda: rungrid_fused.fused_plain(
+        grid, qsoa, qidx, params, est, False), 3)
+    # the nearest candidate of each query, for the windows it needs
+    d2, _ = rungrid_fused.fused_plain(grid, qsoa, qidx, params, 0, True)
+    cp, _, qcap = qsoa.shape
+    n_bytes, n_ops, lanes = _rungrid_need(
+        torch, rungrid, grid, qsoa, qidx, params,
+        torch.sqrt(torch.minimum(d2, params[12])), grid.attrp.shape[1],
+        rungrid.N_SUMS * 4, 7)
+    bound_ms, bound_by = _bound(n_bytes, n_ops)
+    print(f"kernel[fused gn {est_type.name}]: cells {cp} qcap {qcap} kc "
+          f"{grid.kc} P {grid.attrp.shape[1]}; count {int(sp[count])}, sums "
+          f"within {rel:.2e} of their group, pose updates within "
+          f"{d_pose:.2e}; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+          f"bound {bound_ms:.4f} ms by {bound_by} ({n_bytes / 1e9:.3f} GB, "
+          f"{n_ops / 1e9:.2f} G ops, {lanes:.0f} lanes a query); "
+          f"library_ms null: {NO_LIBRARY}")
+    return {"mode": f"gn_{est_type.name}", "max_abs_err": float(
+        (sk - sp).abs().max()), "rel_err": rel, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def check_gmm(torch, rungrid, rungrid_gmm, grid, qsoa, qidx, params):
+    """Kernel 3 against gmm_plain (rtol 2e-5, atol 1e-5)."""
+    got = rungrid_gmm.gmm_pass(grid, qsoa, qidx, params)
+    want = rungrid_gmm.gmm_plain(grid, qsoa, qidx, params)
+    torch.cuda.synchronize()
+    max_err = 0.0
+    for name, a, b in zip(("m0", "m1x", "m1y", "m1z", "m2"), got, want):
+        gap = (a - b).abs()
+        max_err = max(max_err, float(gap.max()))
+        bad = int((gap > GMM_ATOL + GMM_RTOL * b.abs()).sum())
+        if bad:
+            raise AssertionError(f"gmm kernel: {bad} {name} values beyond "
+                                 f"rtol {GMM_RTOL} atol {GMM_ATOL}")
+    ms = _time_ms(torch, lambda: rungrid_gmm.gmm_pass(
+        grid, qsoa, qidx, params), TIMED_LAUNCHES)
+    plain_ms = _time_ms(torch, lambda: rungrid_gmm.gmm_plain(
+        grid, qsoa, qidx, params), 3)
+    cp, _, qcap = qsoa.shape
+    n_bytes, n_ops, lanes = _rungrid_need(
+        torch, rungrid, grid, qsoa, qidx, params,
+        torch.sqrt(params[12]).expand(cp, qcap), 0, 5 * cp * qcap * 4,
+        16)   # 7 for d2, compare, exp, 7 for the moments
+    bound_ms, bound_by = _bound(n_bytes, n_ops)
+    n_valid = int((qidx >= 0).sum())
+    print(f"kernel[gmm]: cells {cp} qcap {qcap} kc {grid.kc}; {n_valid} "
+          f"valid queries need {lanes:.0f} lanes each; max "
+          f"gap {max_err}; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({n_bytes / 1e9:.3f} GB, "
+          f"{n_ops / 1e9:.2f} G ops); library_ms null: {NO_LIBRARY}")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def main():
@@ -162,12 +372,24 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this run needs an NVIDIA GPU")
     import cupoch_tpu_torch as ctt
-    from cupoch_tpu_torch.knn import poolgrid, poolgrid_slot
+    from cupoch_tpu_torch.knn import (poolgrid, poolgrid_slot, rungrid,
+                                      rungrid_fused, rungrid_gmm)
     from cupoch_tpu_torch.registration import fused_icp
     from cupoch_tpu_torch.registration.estimation import (
         TransformationEstimationType,
     )
     from cupoch_tpu_torch.utility import nvcc
+
+    def reset_counts():
+        poolgrid_slot.launches = 0
+        rungrid_fused.launches.update(corres=0, gn=0)
+        rungrid_gmm.launches = 0
+
+    def counts():
+        return {"slot": poolgrid_slot.launches,
+                "fused_corres": rungrid_fused.launches["corres"],
+                "fused_gn": rungrid_fused.launches["gn"],
+                "gmm": rungrid_gmm.launches}
 
     # 1. device
     card = subprocess.run(
@@ -177,6 +399,7 @@ def main():
     print(card)
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
+    t_start = time.perf_counter()
 
     # 2. build
     t0 = time.perf_counter()
@@ -188,7 +411,7 @@ def main():
         print(f"build: {name} in {build_s:.2f} s (all sources at once); "
               f"ptxas: {' | '.join(ptxas) or 'cached'}")
 
-    # 3. kernel against its plain version at the headline shapes
+    # 3a. kernel 1 against its plain version at the headline shapes
     tgt, tn, src, T_true = _headline_clouds(np, N_POINTS)
     est = TransformationEstimationType.PointToPlane
     tgt_d = torch.as_tensor(tgt, device=dev)
@@ -221,27 +444,111 @@ def main():
         params = poolgrid.make_params(T, r2, grid)
         records.append(check_slot_kernel(torch, poolgrid, poolgrid_slot,
                                          grid, qpool, params, mode))
-    del qpool, params
+    del qpool, params, grid
 
-    # 4. the main path, through the public entry
+    # 3b. kernel 2, correspondence mode, at evaluate_registration's plan
+    # for the headline pair at the true pose (the grid built as it builds
+    # it: no attributes, kc = 27 cap rounded up)
+    src_true = src @ T_true[:3, :3].T + T_true[:3, 3]
+    eplan = rungrid.plan_rungrid(tgt, RADIUS, margin=0.0,
+                                 query_points=src_true, nch=0)
+    egrid = rungrid.make_rungrid(
+        tgt_d, tgt_d.new_zeros((N_POINTS, 0)), eplan["origin"],
+        eplan["cell_size"], eplan["dims"], eplan["cap"], mask=mask)
+    src_true_d = torch.as_tensor(src_true, device=dev)
+    qsoa, qidx = rungrid.bin_queries(
+        src_true_d, src_true_d, egrid.origin, egrid.cell_size, egrid.dims,
+        eplan["qcap"], mask=mask)
+    print(f"evaluate plan: dims {eplan['dims']} cap {eplan['cap']} kc "
+          f"{egrid.kc} (plan kc {eplan['kc']}) qcap {eplan['qcap']}")
+    fused_recs = [check_fused_corres(
+        torch, rungrid, rungrid_fused, egrid, qsoa, qidx,
+        rungrid.make_params(torch.eye(4), r2, egrid))]
+    # the target points this grid holds (the rest it dropped at its cell
+    # cap); evaluate_registration builds the same grid from the same
+    # target below
+    held = np.zeros(N_POINTS, bool)
+    ni = egrid.negidx[egrid.negidx <= 0]
+    held[(-ni).long().cpu().numpy()] = True
+    del egrid, qsoa, qidx, ni
+
+    # 3c. kernel 2, Gauss-Newton mode, at the run-grid ICP fallback's plan
+    ftgt, ftn, fsrc, fT_true = _headline_clouds(np, N_POINTS,
+                                                side=FALLBACK_SIDE)
+    if poolgrid.plan_poolgrid(ftgt, RADIUS, query_points=fsrc,
+                              est=est_code) is not None:
+        raise AssertionError("the fallback cloud's pool plan was accepted")
+    fplan = rungrid.plan_rungrid(ftgt, RADIUS, query_points=fsrc, nch=4)
+    if fplan is None:
+        raise AssertionError("the fallback cloud's run plan was rejected")
+    print(f"fallback plan: dims {fplan['dims']} cap {fplan['cap']} kc "
+          f"{fplan['kc']} qcap {fplan['qcap']}")
+    ftgt_d = torch.as_tensor(ftgt, device=dev)
+    ftn_d = torch.as_tensor(ftn, device=dev)
+    fsrc_d = torch.as_tensor(fsrc, device=dev)
+    fsn_d = torch.as_tensor(ftn @ fT_true[:3, :3], device=dev)
+    for est_type in (TransformationEstimationType.PointToPoint,
+                     TransformationEstimationType.PointToPlane,
+                     TransformationEstimationType.SymmetricMethod):
+        fattrs, fcode = fused_icp.make_target_attrs(est_type, ftgt_d, ftn_d)
+        fgrid = rungrid.make_rungrid(
+            ftgt_d, fattrs, fplan["origin"], fplan["cell_size"],
+            fplan["dims"], fplan["cap"], mask=mask, est=fcode,
+            kc=fplan["kc"])
+        sym = est_type == TransformationEstimationType.SymmetricMethod
+        qsoa, qidx = rungrid.bin_queries(
+            fsrc_d, fsrc_d, fgrid.origin, fgrid.cell_size, fgrid.dims,
+            fplan["qcap"], extra=fsn_d if sym else None,
+            n_extra=3 if sym else 0, mask=mask)
+        fused_recs.append(check_fused_gn(
+            torch, rungrid, rungrid_fused, fused_icp, est_type, fgrid, qsoa, qidx,
+            rungrid.make_params(torch.eye(4), r2, fgrid)))
+        del fgrid, qsoa, qidx
+
+    # 3d. kernel 3 at the FilterReg plan
+    rsrc, rtgt, sigma0, rT_true = _filterreg_pair(np, N_POINTS)
+    trunc = 3.0 * sigma0
+    rplan = rungrid.plan_rungrid(rtgt, trunc, margin=0.25,
+                                 query_points=rsrc, nch=0)
+    rtgt_d = torch.as_tensor(rtgt, device=dev)
+    rsrc_d = torch.as_tensor(rsrc, device=dev)
+    rgrid = rungrid.make_rungrid(
+        rtgt_d, rtgt_d.new_zeros((N_POINTS, 0)), rplan["origin"],
+        rplan["cell_size"], rplan["dims"], rplan["cap"], mask=mask)
+    print(f"filterreg plan: dims {rplan['dims']} cap {rplan['cap']} kc "
+          f"{rgrid.kc} (plan kc {rplan['kc']}) qcap {rplan['qcap']} "
+          f"sigma_initial {sigma0:.6f}")
+    qsoa, qidx = rungrid.bin_queries(
+        rsrc_d, rsrc_d, rgrid.origin, rgrid.cell_size, rgrid.dims,
+        rplan["qcap"], mask=mask)
+    gmm_rec = check_gmm(torch, rungrid, rungrid_gmm, rgrid, qsoa, qidx,
+                        rungrid.make_params(
+                            torch.eye(4), torch.tensor(trunc) ** 2, rgrid,
+                            inv_2s2=1.0 / (2.0 * sigma0 * sigma0)))
+    del rgrid, qsoa, qidx
+
+    # 4. paths, through the public entries
     source = ctt.geometry.PointCloud(src_d)
     target = ctt.geometry.PointCloud(tgt_d)
     target.normals = tn_d
     crit = ctt.registration.ICPConvergenceCriteria(REL_TOL, REL_TOL, ITERS)
     pt2pl = ctt.registration.TransformationEstimationPointToPlane()
+    path_counts = {}
     torch.cuda.synchronize()
-    poolgrid_slot.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     res = ctt.registration.registration_icp(source, target, RADIUS,
                                             estimation=pt2pl, criteria=crit)
     reg_s = time.perf_counter() - t0
+    path_counts["registration_icp pooled"] = counts()
     launches = poolgrid_slot.launches
     pose_err = float(np.abs(res.transformation - T_true).max())
-    print(f"main path: registration_icp pt2pl {N_POINTS} points: fitness "
-          f"{res.fitness:.6f} rmse {res.inlier_rmse:.6e} iterations "
-          f"{res.iterations} pose error {pose_err:.3e} slot launches "
-          f"{launches} dropped target {res.n_dropped_target} queries "
-          f"{res.n_dropped_queries}; {reg_s:.3f} s with the host plan")
+    print(f"path: registration_icp pt2pl {N_POINTS} points (pooled grid): "
+          f"fitness {res.fitness:.6f} rmse {res.inlier_rmse:.6e} iterations "
+          f"{res.iterations} pose error {pose_err:.3e} launches "
+          f"{path_counts['registration_icp pooled']} dropped target "
+          f"{res.n_dropped_target} queries {res.n_dropped_queries}; "
+          f"{reg_s:.3f} s with the host plan")
     if not np.isfinite(res.transformation).all() or pose_err > POSE_TOL:
         raise AssertionError(f"pose error {pose_err} > {POSE_TOL}")
     if res.fitness < 0.99:
@@ -270,7 +577,6 @@ def main():
             best = min(best, time.perf_counter() - t0)
         return best, out
 
-    del grid
     build_s, grid = timed(build)
     loop_s, out = timed(lambda: loop(grid))
     it = out[4]
@@ -278,44 +584,127 @@ def main():
     print(f"timing: secs_per_frame {frame_s:.4f} grid_build_s "
           f"{build_s:.4f} icp_loop_s {loop_s:.4f} pass_ms "
           f"{loop_s / max(it, 1) * 1e3:.3f} iterations {it} on {card}")
-    profile(torch, lambda: loop(grid), loop_s)
+    profile(torch, "pooled ICP loop", lambda: loop(grid), loop_s)
+    del grid
 
-    # small inputs: the card's result against the port's CPU path (the
-    # plain slot version), on a volume cloud (dense grid) and on a
-    # surface cloud (compact grid)
-    sheet_src, sheet = _surface_pair(np)
-    if poolgrid.plan_poolgrid(sheet, RADIUS, query_points=sheet_src)[
-            "active_cells"] is None:
-        raise AssertionError("the surface cloud did not compact its grid")
-    m = 24000
-    pt2pt = ctt.registration.TransformationEstimationPointToPoint()
-    for case, s_np, t_np, n_np, est_obj in (
-            ("volume", src[:m], tgt[:m], tn[:m], pt2pl),
-            ("surface", sheet_src, sheet, None, pt2pt)):
-        out = {}
-        for name in ("cuda", "cpu"):
-            s_pc = ctt.geometry.PointCloud(s_np, device=name)
-            t_pc = ctt.geometry.PointCloud(t_np, device=name)
-            t_pc.normals = n_np
-            out[name] = ctt.registration.registration_icp(
-                s_pc, t_pc, RADIUS, estimation=est_obj, criteria=crit)
-        a, b = out["cuda"], out["cpu"]
-        d_pose = float(np.abs(a.transformation - b.transformation).max())
-        same_corr = \
-            a.correspondence_set.shape == b.correspondence_set.shape \
-            and bool((a.correspondence_set == b.correspondence_set).mean()
-                     >= 0.999)
-        print(f"small input ({case}, {len(s_np)} points): cuda vs cpu "
-              f"pose gap {d_pose:.3e}, fitness {a.fitness:.6f} vs "
-              f"{b.fitness:.6f}, correspondences "
-              f"{'agree' if same_corr else 'differ'}")
-        if d_pose > 1e-4 or abs(a.fitness - b.fitness) > 1e-3 \
-                or not same_corr or a.fitness < 0.98:
-            raise AssertionError(f"card and CPU paths disagree on the "
-                                 f"{case} input")
+    # evaluate_registration at the true pose, then at the ICP result's
+    # pose against that result's correspondences
+    reset_counts()
+    t0 = time.perf_counter()
+    ev = ctt.registration.evaluate_registration(source, target, RADIUS,
+                                                T_true)
+    ev_s = time.perf_counter() - t0
+    path_counts["evaluate_registration"] = counts()
+    ev2 = ctt.registration.evaluate_registration(source, target, RADIUS,
+                                                 res.transformation)
+    agree, nearer = _nearer_agreement(np, src, tgt, res.transformation,
+                                      ev2.correspondence_set,
+                                      res.correspondence_set, held)
+    print(f"path: evaluate_registration {N_POINTS} points at the true pose: "
+          f"fitness {ev.fitness:.6f} rmse {ev.inlier_rmse:.6e} launches "
+          f"{path_counts['evaluate_registration']}; {ev_s:.3f} s with the "
+          f"host plan; at the ICP pose its correspondences agree with "
+          f"registration_icp's on {agree:.6f} of rows; where they differ "
+          f"its pick is the nearer one, or the pooled pick is a target its "
+          f"grid dropped, on {nearer:.6f}; it holds {int(held.sum())} of "
+          f"{N_POINTS} targets")
+    if ev.fitness < 0.999 or ev.inlier_rmse > EVAL_RMSE_MAX \
+            or agree < 0.99 or nearer < 1.0:
+        raise AssertionError("evaluate_registration missed its bounds")
+    if path_counts["evaluate_registration"]["fused_corres"] != 1 \
+            or path_counts["evaluate_registration"]["fused_gn"] != 0:
+        raise AssertionError("evaluate_registration must make exactly one "
+                             "correspondence launch")
+    del source, target, tgt_d, tn_d, src_d
+
+    # the run-grid ICP fallback through the public entry
+    fsource = ctt.geometry.PointCloud(fsrc_d)
+    ftarget = ctt.geometry.PointCloud(ftgt_d)
+    ftarget.normals = ftn_d
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    fres = ctt.registration.registration_icp(
+        fsource, ftarget, RADIUS, estimation=pt2pl, criteria=crit)
+    freg_s = time.perf_counter() - t0
+    path_counts["registration_icp fallback"] = c = counts()
+    fpose_err = float(np.abs(fres.transformation - fT_true).max())
+    print(f"path: registration_icp pt2pl {N_POINTS} points in "
+          f"[0,{FALLBACK_SIDE}]^3 (run-grid fallback): fitness "
+          f"{fres.fitness:.6f} rmse {fres.inlier_rmse:.6e} iterations "
+          f"{fres.iterations} pose error {fpose_err:.3e} launches {c}; "
+          f"{freg_s:.3f} s with the host plan and the grid build")
+    if fpose_err > POSE_TOL or fres.fitness < 0.99:
+        raise AssertionError("the run-grid fallback missed its bounds")
+    if c["fused_gn"] != fres.iterations or c["fused_corres"] != 1 \
+            or c["slot"] != 0:
+        raise AssertionError(f"fallback launches {c} for "
+                             f"{fres.iterations} iterations")
+    fattrs, fcode = fused_icp.make_target_attrs(est, ftgt_d, ftn_d)
+
+    def fbuild():
+        return rungrid.make_rungrid(
+            ftgt_d, fattrs, fplan["origin"], fplan["cell_size"],
+            fplan["dims"], fplan["cap"], mask=mask, est=fcode,
+            kc=fplan["kc"])
+
+    def floop(g):
+        out = fused_icp.icp_core_rungrid(
+            fsrc_d, mask, fsn_d, g, torch.eye(4), RADIUS,
+            fplan["rebin_margin"], REL_TOL, REL_TOL, fplan["qcap"], est,
+            ITERS)
+        torch.cuda.synchronize()
+        return out
+
+    fbuild_s, fgrid = timed(fbuild)
+    floop_s, out = timed(lambda: floop(fgrid))
+    print(f"timing: fallback secs_per_frame {fbuild_s + floop_s:.4f} "
+          f"grid_build_s {fbuild_s:.4f} icp_loop_s {floop_s:.4f} pass_ms "
+          f"{floop_s / max(out[4], 1) * 1e3:.3f} iterations {out[4]} on "
+          f"{card}")
+    profile(torch, "run-grid ICP loop", lambda: floop(fgrid), floop_s)
+    del fgrid, fsource, ftarget
+
+    # registration_filterreg on the scaled FilterReg pair
+    rsource = ctt.geometry.PointCloud(rsrc_d)
+    rtarget = ctt.geometry.PointCloud(rtgt_d)
+    fr_opt = ctt.registration.FilterRegOption(sigma_initial=sigma0)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    rres = ctt.registration.registration_filterreg(rsource, rtarget,
+                                                   option=fr_opt)
+    fr_s = time.perf_counter() - t0
+    path_counts["registration_filterreg"] = c = counts()
+    t_err = float(np.abs(rres.transformation[:3, 3] - rT_true[:3, 3]).max())
+    r_err = float(np.abs(rres.transformation[:3, :3] - np.eye(3)).max())
+    # an E-step per EM iteration, plus the one whose likelihood check
+    # stopped a loop that converged before max_iteration
+    e_steps = rres.iterations + (rres.iterations < fr_opt.max_iteration)
+    print(f"path: registration_filterreg {N_POINTS} points (grid E-step): "
+          f"iterations {rres.iterations} likelihood {rres.likelihood:.6e} "
+          f"translation error {t_err:.3e} rotation error {r_err:.3e} "
+          f"launches {c}; {fr_s:.3f} s with the host plan and the grid "
+          f"build")
+    if t_err > 1e-3 or r_err > 4e-3:
+        raise AssertionError("registration_filterreg missed its bounds")
+    if c["gmm"] != e_steps or c["fused_gn"] or c["fused_corres"]:
+        raise AssertionError(f"filterreg launches {c} for {e_steps} "
+                             f"E-steps")
+    del rsource, rtarget, rtgt_d, rsrc_d
+
+    small_inputs(np, ctt, poolgrid, rungrid, tgt, tn, src, T_true, crit,
+                 pt2pl)
 
     # 5. per-kernel numbers, then the result
+    print(json.dumps({"path_launches": path_counts,
+                      "seconds": time.perf_counter() - t_start}))
     gn, exact = records   # one f32 kernel: both modes time alike
+    pl = next(r for r in fused_recs if r["mode"] == "gn_PointToPlane")
+    fused_launches = sum(path_counts[p]["fused_corres"]
+                         + path_counts[p]["fused_gn"]
+                         for p in ("evaluate_registration",
+                                   "registration_icp fallback"))
     print(json.dumps({"kernels": [{
         "name": "poolgrid_slot",
         "route": "cuda",
@@ -328,16 +717,150 @@ def main():
         "bound_ms": gn["bound_ms"],
         "bound_by": gn["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "rungrid_fused",
+        "route": "cuda",
+        "source": "cupoch_tpu_torch/csrc/rungrid_fused.cu",
+        "replaces": "cupoch_tpu/knn/rungrid.py:603",
+        "launches": fused_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in fused_recs),
+        "ms": pl["ms"],
+        "plain_ms": pl["plain_ms"],
+        "bound_ms": pl["bound_ms"],
+        "bound_by": pl["bound_by"],
+        "library_ms": None,
+        # GN sums are reduced over 1M queries (magnitudes up to 1e6):
+        # their absolute gaps say less than their relative ones
+        "max_rel_err": max(r.get("rel_err", 0.0) for r in fused_recs),
+        "modes": {r["mode"]: {k: r[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+            "rel_err") if k in r} for r in fused_recs},
+    }, {
+        "name": "rungrid_gmm",
+        "route": "cuda",
+        "source": "cupoch_tpu_torch/csrc/rungrid_gmm.cu",
+        "replaces": "cupoch_tpu/knn/rungrid.py:1141",
+        "launches": path_counts["registration_filterreg"]["gmm"],
+        "max_abs_err": gmm_rec["max_abs_err"],
+        "ms": gmm_rec["ms"],
+        "plain_ms": gmm_rec["plain_ms"],
+        "bound_ms": gmm_rec["bound_ms"],
+        "bound_by": gmm_rec["bound_by"],
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
 
 
-def profile(torch, fn, loop_s):
-    """Device time by kernel over one ICP loop (kernels only, not the
+def _nearer_agreement(np, src, tgt, T, run_set, pool_set, held):
+    """(share of the pooled correspondences the run-grid set holds too,
+    share of the differing source rows where the run grid's target is
+    at least as near as the pooled one (in f64, within the run grid's d2
+    rounding) or the pooled target is one the run grid dropped at its
+    cell cap (`held` false)). The pooled exact pass ranks by a key that
+    keeps 11 mantissa bits of the score, so it may take a neighbour a
+    few mm off; the run grid takes the nearest it holds."""
+    run = dict(np.asarray(run_set).tolist())
+    pool = dict(np.asarray(pool_set).tolist())
+    differ = [i for i in pool if i in run and run[i] != pool[i]]
+    agree = sum(1 for i in pool if run.get(i) == pool[i]) \
+        / max(len(pool), 1)
+    if not differ:
+        return agree, 1.0
+    i = np.asarray(differ)
+    p = src[i].astype(np.float64) @ T[:3, :3].T.astype(np.float64) \
+        + T[:3, 3]
+    t_run = np.asarray([run[k] for k in differ])
+    t_pool = np.asarray([pool[k] for k in differ])
+    d_run = ((p - tgt[t_run]) ** 2).sum(-1)
+    d_pool = ((p - tgt[t_pool]) ** 2).sum(-1)
+    ok = (d_run <= d_pool + EVAL_D2_NOISE) | ~held[t_pool]
+    return agree, float(ok.mean())
+
+
+def _corres_agreement(np, a, b):
+    """Share of rows of the larger of two correspondence sets that both
+    hold."""
+    sa = {tuple(r) for r in np.asarray(a).tolist()}
+    sb = {tuple(r) for r in np.asarray(b).tolist()}
+    return len(sa & sb) / max(len(sa), len(sb), 1)
+
+
+def small_inputs(np, ctt, poolgrid, rungrid, tgt, tn, src, T_true, crit,
+                 pt2pl):
+    """Each path on the card against the same call on the CPU (the plain
+    versions): pose within 1e-4, fitness within 1e-3, correspondences
+    >= 99.9% equal."""
+    reg = ctt.registration
+    pt2pt = reg.TransformationEstimationPointToPoint()
+    sheet_src, sheet = _surface_pair(np)
+    if poolgrid.plan_poolgrid(sheet, RADIUS, query_points=sheet_src)[
+            "active_cells"] is None:
+        raise AssertionError("the surface cloud did not compact its grid")
+    m = 24000
+    # 30k points in [0,0.43]^3, about the fallback cloud's density: the
+    # pool plan is rejected, the run plan accepted
+    t_fb, n_fb, s_fb, _ = _headline_clouds(np, 30000, side=0.43, seed=4)
+    if poolgrid.plan_poolgrid(t_fb, RADIUS, query_points=s_fb,
+                              est=2) is not None \
+            or rungrid.plan_rungrid(t_fb, RADIUS, query_points=s_fb) is None:
+        raise AssertionError("the 30k cloud does not take the fallback")
+    fr_src, fr_tgt, fr_sigma, _ = _filterreg_pair(np, 40000, seed=3)
+    few = reg.ICPConvergenceCriteria(REL_TOL, REL_TOL, 8)
+    cases = (
+        ("pooled volume", "icp", src[:m], tgt[:m], tn[:m], pt2pl, crit),
+        ("pooled surface", "icp", sheet_src, sheet, None, pt2pt, crit),
+        ("brute-force ICP", "icp", src[:15000], tgt[:15000], tn[:15000],
+         pt2pl, crit),
+        ("evaluate grid", "evaluate", src[:m], tgt[:m], None, None, None),
+        ("evaluate brute force", "evaluate", src[:15000], tgt[:15000], None,
+         None, None),
+        ("run-grid fallback", "icp", s_fb, t_fb, n_fb, pt2pl, few),
+        ("grid FilterReg", "filterreg", fr_src, fr_tgt, None, None, None),
+    )
+    for case, kind, s_np, t_np, n_np, est_obj, cr in cases:
+        out = {}
+        for name in ("cuda", "cpu"):
+            s_pc = ctt.geometry.PointCloud(s_np, device=name)
+            t_pc = ctt.geometry.PointCloud(t_np, device=name)
+            t_pc.normals = n_np
+            if kind == "icp":
+                out[name] = reg.registration_icp(
+                    s_pc, t_pc, RADIUS, estimation=est_obj, criteria=cr)
+            elif kind == "evaluate":
+                out[name] = reg.evaluate_registration(s_pc, t_pc, RADIUS,
+                                                      T_true)
+            else:
+                out[name] = reg.registration_filterreg(
+                    s_pc, t_pc, option=reg.FilterRegOption(
+                        sigma_initial=fr_sigma, relative_likelihood=0.0,
+                        max_iteration=5))
+        a, b = out["cuda"], out["cpu"]
+        d_pose = float(np.abs(a.transformation - b.transformation).max())
+        if kind == "filterreg":
+            fit_gap, agree, fit = 0.0, 1.0, 1.0
+            detail = (f"likelihood {a.likelihood:.6e} vs "
+                      f"{b.likelihood:.6e}")
+        else:
+            fit_gap = abs(a.fitness - b.fitness)
+            agree = _corres_agreement(np, a.correspondence_set,
+                                      b.correspondence_set)
+            fit = a.fitness
+            detail = (f"fitness {a.fitness:.6f} vs {b.fitness:.6f}, "
+                      f"correspondences agree on {agree:.6f}")
+        print(f"small input ({case}, {len(s_np)} points): cuda vs cpu pose "
+              f"gap {d_pose:.3e}, {detail}")
+        if d_pose > 1e-4 or fit_gap > 1e-3 or agree < AGREE_MIN \
+                or fit < 0.98:
+            raise AssertionError(f"card and CPU paths disagree on the "
+                                 f"{case} input")
+
+
+def profile(torch, what, fn, loop_s):
+    """Device time by kernel over one run of `fn` (kernels only, not the
     operators that launch them), and the device's busy share of the
-    unprofiled loop's wall time `loop_s`."""
+    unprofiled run's wall time `loop_s`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -356,12 +879,14 @@ def profile(torch, fn, loop_s):
                   key=lambda e: -dev_us(e))
     busy_ms = sum(dev_us(e) for e in rows) / 1e3
     if not rows:
-        print("profile: the profiler saw no device time: not measured")
+        print(f"profile ({what}): the profiler saw no device time: not "
+              f"measured")
         return
     top = "; ".join(f"{e.key[:48]} {dev_us(e) / 1e3:.3f} ms x{e.count}"
                     for e in rows[:10])
-    print(f"profile: kernels {busy_ms:.3f} ms over a {loop_s * 1e3:.3f} ms "
-          f"loop, busy share {busy_ms / (loop_s * 1e3):.3f}; top: {top}")
+    print(f"profile ({what}): kernels {busy_ms:.3f} ms over a "
+          f"{loop_s * 1e3:.3f} ms loop, busy share "
+          f"{busy_ms / (loop_s * 1e3):.3f}; top: {top}")
 
 
 if __name__ == "__main__":

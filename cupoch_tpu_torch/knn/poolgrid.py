@@ -34,7 +34,8 @@ from ..utility.device import resolve_device
 from . import poolgrid_slot
 from .rungrid import (
     EST_NONE, EST_PT2PT, EST_PT2PL, EST_SYM, INVALID_INDEX, N_SUMS,
-    RUN_OFFSETS, WINDOW,
+    RUN_OFFSETS, SENTINEL_BIN, WINDOW, _bin_to_slots, _lin_morton,
+    cell_centers,
 )
 
 BIG = 3.0e18
@@ -282,9 +283,6 @@ def plan_poolgrid(points: np.ndarray, radius: float,
 # binning: sort by (bin | morton) key, rank within bin, scatter to slots
 # ---------------------------------------------------------------------------
 
-SENTINEL_BIN = 1 << 24  # > any padded bin count (max_cells <= 2M)
-
-
 def _cell_key(points, origin, cell_size, dims, n_bins_div, mask=None,
               cell_map=None):
     """(bin | 6-bit Morton) int32 key; bin = cell_rank // n_bins_div
@@ -293,65 +291,15 @@ def _cell_key(points, origin, cell_size, dims, n_bins_div, mask=None,
     and go to the sentinel, as do out-of-bounds and masked points).
     Returns (key, linear cell id, in-bounds mask)."""
     C = dims[0] * dims[1] * dims[2]
-    rel = (points - origin) / cell_size
-    cell = torch.floor(rel).to(torch.int32)
-    dims_t = torch.tensor(dims, dtype=torch.int32, device=points.device)
-    inb = ((cell >= 0) & (cell < dims_t)).all(-1)
-    if mask is not None:
-        inb = inb & mask
-    lin = (cell[:, 0] * dims[1] + cell[:, 1]) * dims[2] + cell[:, 2]
+    lin, m, inb = _lin_morton(points, origin, cell_size, dims, mask)
     if cell_map is not None:
         rank = cell_map[lin.clamp(0, C - 1).long()]
         inb = inb & (rank >= 0)
     else:
         rank = lin
-    sub = ((rel - cell) * 4.0).clamp(0.0, 3.9999).to(torch.int32)
-    m = ((sub[:, 0] & 2) << 4) | ((sub[:, 1] & 2) << 3) \
-        | ((sub[:, 2] & 2) << 2) \
-        | ((sub[:, 0] & 1) << 2) | ((sub[:, 1] & 1) << 1) \
-        | (sub[:, 2] & 1)
     key = torch.where(inb, torch.div(rank, n_bins_div, rounding_mode="floor")
                       * 64 + m, SENTINEL_BIN * 64)
     return key, lin, inb
-
-
-def _bin_to_slots(key, n_bins: int, cap: int, channels, fill):
-    """Stable sort by key, rank within bin (key // 64), scatter the
-    channels to [n_bins, cap] slots. Returns (outs, index [n_bins, cap]
-    int32 of original positions (-1 empty), n_dropped)."""
-    N = key.shape[0]
-    dev = key.device
-    keys_s, order = torch.sort(key, stable=True)
-    pos = torch.arange(N, device=dev)
-    bin_s = torch.div(keys_s, 64, rounding_mode="floor").long()
-    boundary = torch.ones(N, dtype=torch.bool, device=dev)
-    boundary[1:] = bin_s[1:] != bin_s[:-1]
-    seg_start = torch.cummax(torch.where(boundary, pos, 0), 0).values
-    rank = pos - seg_start
-    valid = bin_s < n_bins
-    ok = valid & (rank < cap)
-    n_dropped = (valid & (rank >= cap)).sum()
-    # slot n_bins*cap is the dump for dropped entries, sliced off below
-    slot = torch.where(ok, bin_s * cap + rank, n_bins * cap)
-    outs = []
-    for ch, f in zip(channels, fill):
-        buf = torch.full((n_bins * cap + 1,), f, dtype=ch.dtype, device=dev)
-        buf[slot] = ch[order]
-        outs.append(buf[:-1].reshape(n_bins, cap))
-    index = torch.full((n_bins * cap + 1,), INVALID_INDEX,
-                       dtype=torch.int32, device=dev)
-    index[slot] = order.to(torch.int32)
-    return outs, index[:-1].reshape(n_bins, cap), n_dropped
-
-
-def cell_centers(dims, origin, cell_size, C: int):
-    Gx, Gy, Gz = dims
-    lin = torch.arange(C, dtype=torch.int32, device=origin.device)
-    ccz = (lin % Gz).float()
-    ccy = ((lin // Gz) % Gy).float()
-    ccx = (lin // (Gz * Gy)).float()
-    c = torch.stack([ccx, ccy, ccz], -1) + 0.5
-    return origin + c * cell_size
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,34 @@
-"""Constants shared by the grid searches.
+"""Run-structured candidate grid (counterpart of the JAX package's
+`knn/rungrid.py`), in PyTorch.
 
-Only the constants that the pooled grid (`poolgrid.py`) uses are here
-so far: the 27 neighbour offsets, the estimator codes and the layout
-of the Gauss-Newton sums. The run-structured grid itself is not
-ported yet.
+The target is binned once into cells of `radius * (1 + margin)`. Every
+cell gets one row of 27*cap candidate lanes: the contents of its 27
+neighbour cells, stored relative to the row's cell centre as
+(-2cx, -2cy, -2cz, |c|^2) and sorted by |c|, so each 128-lane window
+has a rising lower bound `bounds` that lets a search stop early. The
+row is truncated to the planned `kc` lanes. The estimator's winner
+attributes ride along as two 16-bit quantised fields per int32 word
+(`attrp`, unpacked with the (lo, scale) pairs in `pack_lohi`), exactly
+as in the JAX package, so both grids hold the same bytes.
+
+Queries are binned per cell (`bin_queries`) and searched by the fused
+pass in `rungrid_fused.py` (kernel 2) or the Gaussian-moment pass in
+`rungrid_gmm.py` (kernel 3). The helpers shared with the pooled grid
+(`_lin_morton`, `_bin_to_slots`, `cell_centers`) live here.
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..utility.device import resolve_device
+
 INVALID_INDEX = -1
-WINDOW = 128  # candidate lanes are padded to a multiple of this
+BIG = 3.0e18
+WINDOW = 128  # pruning-window width in lanes
+NPARAMS = 32
 
 # 27 neighbor offsets in ascending center-to-center distance:
 # own cell, 6 faces, 12 edges, 8 corners.
@@ -19,12 +39,518 @@ RUN_OFFSETS = tuple(sorted(
 
 # estimator codes; values match
 # registration.estimation.TransformationEstimationType where relevant
-EST_NONE = 0    # correspondence only
-EST_PT2PT = 1
-EST_PT2PL = 2
-EST_SYM = 3
+EST_NONE = 0    # correspondence only: outputs (d2, -index)
+EST_PT2PT = 1   # packed attrs: centered target point
+EST_PT2PL = 2   # packed attrs: normal + centered plane offset
+EST_SYM = 3     # packed attrs: centered point + target normal
 
 N_SUMS = 32
 # GN slot layout: 0-20 JTJ upper-tri, 21-26 JTr, 27 count, 28 err
 # PT2PT layout:   0 count, 1-3 sum(t), 4-6 sum(p), 7-15 sum(t p^T),
 #                 16 err
+
+SENTINEL_BIN = 1 << 24  # > any bin count (max_cells <= 2M)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _n_packed(est: int) -> int:
+    return {EST_NONE: 0, EST_PT2PT: 2, EST_PT2PL: 2, EST_SYM: 3}[est]
+
+
+# ---------------------------------------------------------------------------
+# container
+# ---------------------------------------------------------------------------
+
+class RunGrid:
+    """The built target grid; `dims`, `cap`, `kc`, `est` are ints.
+
+    cand      [Cp, 4, KC] f32  rows (-2cx, -2cy, -2cz, |c|^2), c relative
+                               to the row's cell center; empty: |c|^2 = BIG
+    attrp     [Cp, P, KC] i32  two 16-bit quantized attribute fields per
+                               lane (estimator-specific; P may be 0)
+    negidx    [Cp, KC] f32     -original_index (+1 = empty)
+    bounds    [Cp, NW] f32     min |c| per 128-lane window (+inf if empty)
+    pack_lohi [2P, 2] f32      (lo, scale) per 16-bit field
+    origin [3], cell_size [] f32 tensors
+    """
+
+    def __init__(self, cand, attrp, negidx, bounds, pack_lohi, origin,
+                 cell_size, dims, cap, kc, est):
+        self.cand = cand
+        self.attrp = attrp
+        self.negidx = negidx
+        self.bounds = bounds
+        self.pack_lohi = pack_lohi
+        self.origin = origin
+        self.cell_size = cell_size
+        self.dims = tuple(int(d) for d in dims)
+        self.cap = int(cap)
+        self.kc = int(kc)
+        self.est = int(est)
+
+    @property
+    def n_windows(self) -> int:
+        return self.kc // WINDOW
+
+    @classmethod
+    def from_numpy(cls, cand, attrp, negidx, bounds, pack_lohi, origin,
+                   cell_size, dims, cap, kc, est, device=None) -> "RunGrid":
+        """The port's grid from the JAX RunGrid's leaves given as numpy
+        arrays (the layouts are the same)."""
+        dev = resolve_device(device)
+
+        def t(a, dtype):
+            return torch.as_tensor(np.array(a, dtype), device=dev)
+
+        return cls(t(cand, np.float32), t(attrp, np.int32),
+                   t(negidx, np.float32), t(bounds, np.float32),
+                   t(pack_lohi, np.float32), t(origin, np.float32),
+                   t(cell_size, np.float32), dims, cap, kc, est)
+
+
+def padded_cells(dims) -> int:
+    return _round_up(dims[0] * dims[1] * dims[2], 64)
+
+
+# ---------------------------------------------------------------------------
+# host-side plan (numpy; identical to the JAX package's plan)
+# ---------------------------------------------------------------------------
+
+def plan_rungrid(points: np.ndarray, radius: float,
+                 margin: float = 0.25,
+                 query_points: Optional[np.ndarray] = None,
+                 cap_percentile: float = 99.5,
+                 max_cells: int = 2_000_000,
+                 cap_limit: int = 128,
+                 mem_budget_bytes: int = 5 << 30,
+                 nch: int = 4) -> Optional[dict]:
+    """Host sizing. Returns None when a dense grid is unreasonable.
+
+    cell = radius*(1+margin): queries binned at transform T_bin stay
+    valid for the 27-neighborhood as long as every point has moved
+    less than radius*margin since binning."""
+    pts = np.asarray(points)
+    finite = np.isfinite(pts).all(-1)
+    if not finite.any() or radius <= 0:
+        return None
+    lo = pts[finite].min(0).astype(np.float64)
+    hi = pts[finite].max(0).astype(np.float64)
+    cell = float(radius) * (1.0 + float(margin))
+    dims_core = np.maximum(1, np.ceil((hi - lo) / cell + 1e-6).astype(int))
+    dims = tuple(int(d) + 2 for d in dims_core)
+    n_cells = int(np.prod(dims))
+    if n_cells > max_cells:
+        return None
+    cidx = np.floor((pts[finite] - lo) / cell).astype(np.int64)
+    cidx = np.minimum(cidx, dims_core - 1)
+
+    def _counts3d(ci, dc):
+        lin = (ci[:, 0] * dc[1] + ci[:, 1]) * dc[2] + ci[:, 2]
+        return np.bincount(lin, minlength=int(np.prod(dc))).reshape(dc)
+
+    counts = _counts3d(cidx, dims_core)
+    occupied = counts[counts > 0]
+    cap = int(np.percentile(occupied, cap_percentile)) if occupied.size \
+        else 8
+    if cap > cap_limit:
+        return None
+    cap = max(8, _round_up(cap, 8))
+    # lanes are sorted by distance at build, so KC can truncate to the
+    # 99.9th percentile of 27-block occupancy instead of 27*cap
+    blk = np.zeros(np.asarray(dims_core) + 2, np.int64)
+    for dx in (0, 1, 2):
+        for dy in (0, 1, 2):
+            for dz in (0, 1, 2):
+                blk[dx:dx + dims_core[0], dy:dy + dims_core[1],
+                    dz:dz + dims_core[2]] += counts
+    blk_occ = blk[blk > 0]
+    kc_full = _round_up(27 * cap, WINDOW)
+    if blk_occ.size:
+        kc = min(kc_full, max(WINDOW, _round_up(
+            int(np.percentile(blk_occ, 99.9)), WINDOW)))
+    else:
+        kc = kc_full
+    # query-side cell capacity
+    qcap = cap
+    if query_points is not None:
+        qp = np.asarray(query_points)
+        qf = np.isfinite(qp).all(-1)
+        if qf.any():
+            qc = np.floor((qp[qf] - lo) / cell).astype(np.int64)
+            inb = ((qc >= 0) & (qc < dims_core)).all(-1)
+            if inb.any():
+                qcnt = _counts3d(qc[inb], dims_core)
+                qocc = qcnt[qcnt > 0]
+                qcap = int(np.percentile(qocc, cap_percentile))
+        # rebinning shifts occupancy a little; leave headroom
+        qcap = max(8, _round_up(int(qcap * 1.25) + 2, 8))
+    cp = padded_cells(dims)
+    grid_bytes = cp * kc * 4 * (4 + nch + 1)
+    if grid_bytes > mem_budget_bytes:
+        return None
+    origin = (lo - cell).astype(np.float32)
+    return {
+        "dims": dims, "origin": origin, "cap": cap, "kc": int(kc),
+        "qcap": int(qcap),
+        "cell_size": np.float32(cell),
+        "rebin_margin": np.float32(float(radius) * float(margin)),
+    }
+
+
+# ---------------------------------------------------------------------------
+# binning (shared with the pooled grid)
+# ---------------------------------------------------------------------------
+
+def _lin_morton(points, origin, cell_size, dims, mask=None):
+    """(linear cell id, 6-bit sub-cell Morton code, in-bounds & mask)
+    per point. The Morton code makes lanes within a cell spatially
+    coherent, so the 128-lane pruning windows stay tight."""
+    rel = (points - origin) / cell_size
+    cell = torch.floor(rel).to(torch.int32)
+    dims_t = torch.tensor(dims, dtype=torch.int32, device=points.device)
+    inb = ((cell >= 0) & (cell < dims_t)).all(-1)
+    if mask is not None:
+        inb = inb & mask
+    lin = (cell[:, 0] * dims[1] + cell[:, 1]) * dims[2] + cell[:, 2]
+    sub = ((rel - cell) * 4.0).clamp(0.0, 3.9999).to(torch.int32)
+    m = ((sub[:, 0] & 2) << 4) | ((sub[:, 1] & 2) << 3) \
+        | ((sub[:, 2] & 2) << 2) \
+        | ((sub[:, 0] & 1) << 2) | ((sub[:, 1] & 1) << 1) \
+        | (sub[:, 2] & 1)
+    return lin, m, inb
+
+
+def _cell_and_morton(points, origin, cell_size, dims, mask=None):
+    """(linear cell | 6-bit Morton) key per point, out-of-bounds and
+    masked-out points to the sentinel bin (dropped); and the linear
+    cell id."""
+    lin, m, inb = _lin_morton(points, origin, cell_size, dims, mask)
+    return torch.where(inb, lin * 64 + m, SENTINEL_BIN * 64), lin
+
+
+def _bin_to_slots(key, n_bins: int, cap: int, channels, fill):
+    """Stable sort by key, rank within bin (key // 64), scatter the
+    channels to [n_bins, cap] slots. Returns (outs, index [n_bins, cap]
+    int32 of original positions (-1 empty), n_dropped)."""
+    N = key.shape[0]
+    dev = key.device
+    keys_s, order = torch.sort(key, stable=True)
+    pos = torch.arange(N, device=dev)
+    bin_s = torch.div(keys_s, 64, rounding_mode="floor").long()
+    boundary = torch.ones(N, dtype=torch.bool, device=dev)
+    boundary[1:] = bin_s[1:] != bin_s[:-1]
+    seg_start = torch.cummax(torch.where(boundary, pos, 0), 0).values
+    rank = pos - seg_start
+    valid = bin_s < n_bins
+    ok = valid & (rank < cap)
+    n_dropped = (valid & (rank >= cap)).sum()
+    # slot n_bins*cap is the dump for dropped entries, sliced off below
+    slot = torch.where(ok, bin_s * cap + rank, n_bins * cap)
+    outs = []
+    for ch, f in zip(channels, fill):
+        buf = torch.full((n_bins * cap + 1,), f, dtype=ch.dtype, device=dev)
+        buf[slot] = ch[order]
+        outs.append(buf[:-1].reshape(n_bins, cap))
+    index = torch.full((n_bins * cap + 1,), INVALID_INDEX,
+                       dtype=torch.int32, device=dev)
+    index[slot] = order.to(torch.int32)
+    return outs, index[:-1].reshape(n_bins, cap), n_dropped
+
+
+def cell_centers(dims, origin, cell_size, cp: int):
+    """[cp, 3] cell centres origin + (cell + 0.5) * h; rows past the
+    C real cells repeat the last cell's centre."""
+    Gx, Gy, Gz = dims
+    C = Gx * Gy * Gz
+    lin = torch.arange(cp, dtype=torch.int32, device=origin.device)
+    linc = torch.clamp(lin, max=C - 1)
+    ccz = (linc % Gz).float()
+    ccy = ((linc // Gz) % Gy).float()
+    ccx = (linc // (Gz * Gy)).float()
+    c = torch.stack([ccx, ccy, ccz], -1) + 0.5
+    return origin + c * cell_size
+
+
+# ---------------------------------------------------------------------------
+# build
+# ---------------------------------------------------------------------------
+
+def _pack_channel_list(est: int, coords, attrs_rolled, cell_size):
+    """Estimator-specific 16-bit fields: list of (values [C, L], lo,
+    hi), lo/hi python floats or 0-d f32 tensors (cell-relative)."""
+    cx, cy, cz = coords
+    pr = 1.6 * cell_size   # |centered coord| bound (cell + half-diag)
+    dr = 3.0 * cell_size   # |re-centered plane offset| bound
+    if est == EST_PT2PT:
+        return [(cx, -pr, pr), (cy, -pr, pr), (cz, -pr, pr),
+                (torch.zeros_like(cx), -1.0, 1.0)]
+    if est == EST_PT2PL:
+        n0, n1, n2, d = attrs_rolled[:4]
+        return [(n0, -1.0, 1.0), (n1, -1.0, 1.0), (n2, -1.0, 1.0),
+                (d, -dr, dr)]
+    if est == EST_SYM:
+        n0, n1, n2 = attrs_rolled[:3]
+        return [(cx, -pr, pr), (cy, -pr, pr), (cz, -pr, pr),
+                (n0, -1.0, 1.0), (n1, -1.0, 1.0), (n2, -1.0, 1.0)]
+    return []
+
+
+def _q16(v, lo, hi):
+    s = 65535.0 / (hi - lo)
+    return torch.clamp(torch.round((v - lo) * s), 0.0,
+                       65535.0).to(torch.int32)
+
+
+def _f32(x, dev):
+    return torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(())
+
+
+def build_rungrid_arrays(points, attrs, origin, cell_size,
+                         dims: Tuple[int, int, int], cap: int, nch: int,
+                         est: int = EST_NONE, mask=None,
+                         kc: Optional[int] = None):
+    """Bin targets once, assemble each cell's 27-run neighbourhood as
+    rolls, fold per-run centre offsets into the coordinates, quantize
+    the estimator's fetch channels to 16-bit pairs, sort each row's
+    lanes by distance to the cell centre, and record per-window
+    pruning bounds. Returns (cand, attrp, negidx, bounds, pack_lohi).
+
+    For EST_PT2PL, attrs is [N, 4] = (normal, d = n.p); d is
+    re-centered per row (d_rel = d - n.row_center) so the centered
+    residual n.q_centered - d_rel equals the world-frame n.q - d."""
+    Gx, Gy, Gz = dims
+    C = Gx * Gy * Gz
+    dev = points.device
+    key, lin = _cell_and_morton(points, origin, cell_size, dims, mask)
+    linc = lin.clamp(0, C - 1).long()
+    pc = points - cell_centers(dims, origin, cell_size, C)[linc]
+    inf = float("inf")
+    channels = [pc[:, 0], pc[:, 1], pc[:, 2]] + \
+        [attrs[:, i] for i in range(nch)]
+    binned, index, _ = _bin_to_slots(key, C, cap, channels,
+                                     [inf] * 3 + [0.0] * nch)
+    negidx0 = -index.float()  # exact for N < 2^24
+
+    def rolled(arr2d):
+        """27 runs in RUN_OFFSETS order: run r of cell c holds the
+        contents of cell c+off_r (the +1 guard ring absorbs wraps)."""
+        a = arr2d.reshape(Gx, Gy, Gz, cap)
+        return torch.cat([torch.roll(a, (-dx, -dy, -dz), (0, 1, 2))
+                          .reshape(C, cap) for (dx, dy, dz) in RUN_OFFSETS],
+                         -1)
+
+    lane_off = torch.tensor(RUN_OFFSETS, dtype=torch.float32,
+                            device=dev).repeat_interleave(cap, 0)
+    cx, cy, cz = (rolled(binned[i]) + lane_off[None, :, i] * cell_size
+                  for i in range(3))
+    ach = [rolled(binned[3 + i]) for i in range(nch)]
+    negidx = rolled(negidx0)
+
+    if est == EST_PT2PL:
+        rcen = cell_centers(dims, origin, cell_size, C)
+        ach[3] = ach[3] - (ach[0] * rcen[:, 0:1] + ach[1] * rcen[:, 1:2]
+                           + ach[2] * rcen[:, 2:3])
+
+    empty = ~torch.isfinite(cx)
+    dist = torch.where(empty, inf, torch.sqrt(cx * cx + cy * cy + cz * cz))
+    cx, cy, cz = (torch.where(empty, 0.0, v) for v in (cx, cy, cz))
+
+    # 16-bit-pair attribute packing (winner-fetch operands)
+    fields = _pack_channel_list(est, (cx, cy, cz), ach, cell_size)
+    packed, lohi = [], []
+    for i in range(0, len(fields), 2):
+        (v0, lo0, hi0), (v1, lo1, hi1) = fields[i], fields[i + 1]
+        packed.append(_q16(v0, lo0, hi0) | (_q16(v1, lo1, hi1) << 16))
+        for lo, hi in ((lo0, hi0), (lo1, hi1)):
+            lohi.append(torch.stack([_f32(lo, dev),
+                                     _f32((hi - lo) / 65535.0, dev)]))
+    P = len(packed)
+    negidx = torch.where(empty, -float(INVALID_INDEX), negidx)
+
+    # lane sort by distance to the row's cell centre: windows get rising
+    # bounds and far / empty lanes can be truncated to the planned kc.
+    # Stable, where the JAX package's sort is not: only equal distances
+    # of real points may come out in another order.
+    dist, order = torch.sort(dist, dim=1, stable=True)
+    cx, cy, cz, negidx = (torch.gather(v, 1, order)
+                          for v in (cx, cy, cz, negidx))
+    packed = [torch.gather(v, 1, order) for v in packed]
+    del order
+
+    kc_full = _round_up(27 * cap, WINDOW)
+    kc = kc_full if kc is None else min(int(kc), kc_full)
+    L = dist.shape[1]
+    if kc < L:
+        dist, cx, cy, cz, negidx = (v[:, :kc] for v in
+                                    (dist, cx, cy, cz, negidx))
+        packed = [v[:, :kc] for v in packed]
+    elif kc > L:
+        padn = kc - L
+
+        def pad(v, value):
+            return torch.nn.functional.pad(v, (0, padn), value=value)
+        dist = pad(dist, inf)
+        cx, cy, cz = (pad(v, 0.0) for v in (cx, cy, cz))
+        negidx = pad(negidx, -float(INVALID_INDEX))
+        packed = [pad(v, 0) for v in packed]
+
+    cn = torch.where(torch.isfinite(dist), dist * dist, BIG)
+    bounds = dist.reshape(C, kc // WINDOW, WINDOW).min(-1).values
+    cand = torch.stack([-2.0 * cx, -2.0 * cy, -2.0 * cz, cn], 1)
+    attrp = torch.stack(packed, 1) if P else \
+        torch.zeros((C, 0, kc), dtype=torch.int32, device=dev)
+    pack_lohi = torch.stack(lohi, 0) if P else \
+        torch.zeros((0, 2), dtype=torch.float32, device=dev)
+
+    cp = padded_cells(dims)
+    if cp > C:
+        padc = cp - C
+        cpad = torch.zeros((padc, 4, kc), dtype=torch.float32, device=dev)
+        cpad[:, 3] = BIG
+        cand = torch.cat([cand, cpad], 0)
+        attrp = torch.cat([attrp, attrp.new_zeros((padc, P, kc))], 0)
+        negidx = torch.cat([negidx, negidx.new_full(
+            (padc, kc), -float(INVALID_INDEX))], 0)
+        bounds = torch.cat([bounds, bounds.new_full(
+            (padc, kc // WINDOW), inf)], 0)
+    return (cand.contiguous(), attrp.contiguous(), negidx.contiguous(),
+            bounds.contiguous(), pack_lohi)
+
+
+def make_rungrid(points, attrs, origin, cell_size, dims, cap,
+                 mask=None, est: int = EST_NONE,
+                 kc: Optional[int] = None) -> RunGrid:
+    """Build the grid on `points.device`."""
+    dev = points.device
+    origin = torch.as_tensor(np.asarray(origin, np.float32), device=dev)
+    cell_size = torch.as_tensor(np.float32(cell_size), device=dev)
+    dims = tuple(int(d) for d in dims)
+    cand, attrp, negidx, bounds, pack_lohi = build_rungrid_arrays(
+        points, attrs, origin, cell_size, dims, int(cap),
+        int(attrs.shape[1]), est=int(est), mask=mask, kc=kc)
+    return RunGrid(cand, attrp, negidx, bounds, pack_lohi, origin,
+                   cell_size, dims, cap, cand.shape[2], est)
+
+
+# ---------------------------------------------------------------------------
+# query-side binning (queries keep ORIGINAL coords; binned by position
+# under the binning transform)
+# ---------------------------------------------------------------------------
+
+def bin_queries(points, bin_positions, origin, cell_size,
+                dims: Tuple[int, int, int], qcap: int,
+                extra=None, n_extra: int = 0, mask=None):
+    """Returns (qsoa [Cp, 3+n_extra, qcap] f32, qidx [Cp, qcap] int32).
+    Empty slots: coords are the cell center (centered math sees ~0),
+    qidx = -1."""
+    C = dims[0] * dims[1] * dims[2]
+    key, _ = _cell_and_morton(bin_positions, origin, cell_size, dims,
+                              mask)
+    channels = [points[:, 0], points[:, 1], points[:, 2]]
+    channels += [extra[:, i] for i in range(n_extra)]
+    inf = float("inf")
+    binned, index, _ = _bin_to_slots(key, C, qcap, channels,
+                                     [inf] * 3 + [0.0] * n_extra)
+    centers = cell_centers(dims, origin, cell_size, C)
+    empty = ~torch.isfinite(binned[0])
+    qs = [torch.where(empty, centers[:, i:i + 1], binned[i])
+          for i in range(3)]
+    qsoa = torch.stack(qs + list(binned[3:]), 1)
+    cp = padded_cells(dims)
+    if cp > C:
+        padc = torch.zeros((cp - C, 3 + n_extra, qcap), dtype=torch.float32,
+                           device=qsoa.device)
+        padc[:, :3] = origin.reshape(1, 3, 1)
+        qsoa = torch.cat([qsoa, padc], 0)
+        index = torch.cat([index, index.new_full((cp - C, qcap),
+                                                 INVALID_INDEX)], 0)
+    return qsoa.contiguous(), index.contiguous()
+
+
+def scatter_to_source(qidx, values, n: int, fill):
+    """[n] per-source values from the binned [rows, qcap] `values`, with
+    `qidx` the source index of each binned slot (-1 empty); sources no
+    slot holds get `fill`."""
+    flat_q = qidx.reshape(-1)
+    okq = flat_q >= 0
+    slot = torch.where(okq, flat_q, n).long()   # n: dump slot, sliced off
+    out = torch.full((n + 1,), fill, dtype=values.dtype,
+                     device=values.device)
+    out[slot] = torch.where(okq, values.reshape(-1), fill)
+    return out[:n]
+
+
+def make_params(T, r2, grid: RunGrid, inv_2s2=0.0):
+    """[NPARAMS] f32 on the grid's device: R row-major (0-8), t (9-11),
+    r^2 (12), origin (13-15), cell_size (16), inv_2s2 (17), per-16-bit-
+    field (lo, scale) unpack pairs (18..)."""
+    dev = grid.cand.device
+    T = torch.as_tensor(T, dtype=torch.float32).to(dev)
+    head = torch.cat([
+        T[:3, :3].reshape(-1), T[:3, 3],
+        torch.as_tensor(r2, dtype=torch.float32).to(dev).reshape(1),
+        grid.origin.reshape(3), grid.cell_size.reshape(1),
+        torch.as_tensor(inv_2s2, dtype=torch.float32).to(dev).reshape(1),
+        grid.pack_lohi.reshape(-1)])
+    return torch.cat([head, head.new_zeros(NPARAMS - head.shape[0])])
+
+
+# ---------------------------------------------------------------------------
+# Gauss-Newton terms and the 16-bit unpack (shared by the plain version
+# of the fused pass; the CUDA kernel computes the same terms)
+# ---------------------------------------------------------------------------
+
+def _gn_terms(est: int, fetched, tx, ty, tz, ex, ey, ez,
+              ccx, ccy, ccz, src_n, ok, d2c):
+    """Sum terms (length <= N_SUMS) given unpacked winner channels.
+
+    tx.. = world-frame transformed source; ex.. = cell-centered same;
+    ccx.. = cell centers; src_n = rotated source normals (sym only).
+    Fetched channels: PT2PT/SYM lead with the CENTERED target point.
+    """
+    w = ok.float()
+    if est == EST_PT2PT:
+        px = fetched[0] + ccx
+        py = fetched[1] + ccy
+        pz = fetched[2] + ccz
+        terms = [w, w * tx, w * ty, w * tz, w * px, w * py, w * pz]
+        for s in (tx, ty, tz):
+            for d in (px, py, pz):
+                terms.append(w * s * d)
+        terms.append(d2c)
+        return terms
+    if est == EST_PT2PL:
+        nx, ny, nz, dd = fetched[:4]
+        r = nx * ex + ny * ey + nz * ez - dd
+        j = (ty * nz - tz * ny, tz * nx - tx * nz, tx * ny - ty * nx,
+             nx, ny, nz)
+    elif est == EST_SYM:
+        pxc, pyc, pzc = fetched[0], fetched[1], fetched[2]
+        px, py, pz = pxc + ccx, pyc + ccy, pzc + ccz
+        sx, sy, sz = src_n
+        mx = fetched[3] + sx
+        my = fetched[4] + sy
+        mz = fetched[5] + sz
+        r = (ex - pxc) * mx + (ey - pyc) * my + (ez - pzc) * mz
+        ux, uy, uz = tx + px, ty + py, tz + pz
+        j = (uy * mz - uz * my, uz * mx - ux * mz, ux * my - uy * mx,
+             mx, my, mz)
+    else:
+        raise ValueError(est)
+    terms = []
+    for i in range(6):
+        for k in range(i, 6):
+            terms.append(w * j[i] * j[k])          # 21 JTJ upper-tri
+    for i in range(6):
+        terms.append(w * j[i] * r)                 # 6 JTr
+    terms.append(w)                                # 27: count
+    terms.append(d2c)                              # 28: err
+    return terms
+
+
+def _unpack16(word, lo, scale, high: bool):
+    u = (word >> 16) & 0xFFFF if high else word & 0xFFFF
+    return u.float() * scale + lo

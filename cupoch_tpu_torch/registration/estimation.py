@@ -1,12 +1,26 @@
 """Transformation estimators for ICP (cupoch
-registration/transformation_estimation.h): the estimator types and
-their option holders. On the pooled-grid path the Gauss-Newton and
-Kabsch updates are formed from reduced sums (`fused_icp.py`); the
-per-pair update functions of the generic ICP loop are not ported yet.
+registration/transformation_estimation.h): the estimator types, their
+option holders, and the per-pair updates of the generic ICP loop.
+
+  PointToPoint    - Kabsch SVD (kabsch.py)
+  PointToPlane    - Gauss-Newton on r = (vs - vt) . nt, J = [vs x nt, nt]
+  SymmetricMethod - r = (vs - vt) . (ns + nt), J = [(vs + vt) x n, n]
+
+Each update is split in two: `normal_system` reduces the pairs to a few
+floats on their device (the Kabsch statistics, or JTJ and JTr), and
+`solve_normal_system` turns them into a 4x4 update on the host. The ICP
+loop reads the system together with its convergence statistics, in one
+device-to-host copy an iteration. On the grid paths the same updates
+come from the reduced sums of `fused_icp.py`.
 """
 from __future__ import annotations
 
 import enum
+
+import torch
+
+from ..utility import eigen as ueigen
+from .kabsch import kabsch_solve, kabsch_stats
 
 
 class TransformationEstimationType(enum.IntEnum):
@@ -71,3 +85,70 @@ class TransformationEstimationForGeneralizedICP(TransformationEstimation):
 
     def get_transformation_estimation_type(self):
         return TransformationEstimationType.GeneralizedICP
+
+
+# ---------------------------------------------------------------------------
+# per-pair updates; inputs are gathered correspondence pairs with a
+# validity weight w per pair
+# ---------------------------------------------------------------------------
+
+def _gn_system(J: torch.Tensor, r: torch.Tensor, w: torch.Tensor):
+    Jw = J * w[:, None]
+    return torch.cat([(Jw.T @ J).reshape(-1), Jw.T @ r])
+
+
+def normal_system(est_type, src, dst, dst_normals, src_normals, w):
+    """The update's inputs reduced on the device of the pairs: the
+    Kabsch statistics (PointToPoint) or JTJ [36] and JTr [6]."""
+    if est_type == TransformationEstimationType.PointToPoint:
+        return kabsch_stats(src, dst, w)
+    if est_type == TransformationEstimationType.PointToPlane:
+        n = dst_normals
+        r = ((src - dst) * n).sum(-1)
+        J = torch.cat([torch.linalg.cross(src, n, dim=-1), n], -1)
+        return _gn_system(J, r, w)
+    if est_type == TransformationEstimationType.SymmetricMethod:
+        n = src_normals + dst_normals
+        r = ((src - dst) * n).sum(-1)
+        J = torch.cat([torch.linalg.cross(src + dst, n, dim=-1), n], -1)
+        return _gn_system(J, r, w)
+    raise NotImplementedError(
+        f"the {TransformationEstimationType(est_type).name} update is not "
+        f"ported yet")
+
+
+def solve_normal_system(est_type, system) -> torch.Tensor:
+    """[4, 4] f32 update, on the device of `system` (the host, as a
+    rule), from `normal_system`."""
+    if est_type == TransformationEstimationType.PointToPoint:
+        return kabsch_solve(system)
+    ok, T = ueigen.solve_jacobian_system(system[:36].reshape(6, 6),
+                                         system[36:42])
+    return T
+
+
+def _update(est_type, src, dst, dst_normals, src_normals, w):
+    return solve_normal_system(est_type, normal_system(
+        est_type, src, dst, dst_normals, src_normals, w).cpu())
+
+
+def update_point_to_point(src, dst, dst_normals, src_normals, w):
+    return _update(TransformationEstimationType.PointToPoint, src, dst,
+                   dst_normals, src_normals, w)
+
+
+def _gn_update(J, r, w):
+    return solve_normal_system(TransformationEstimationType.PointToPlane,
+                               _gn_system(J, r, w).cpu())
+
+
+def update_point_to_plane(src, dst, dst_normals, src_normals, w):
+    """cupoch pt2pl_jacobian_residual_functor."""
+    return _update(TransformationEstimationType.PointToPlane, src, dst,
+                   dst_normals, src_normals, w)
+
+
+def update_symmetric(src, dst, dst_normals, src_normals, w):
+    """cupoch symmetric_jacobian_residual_functor."""
+    return _update(TransformationEstimationType.SymmetricMethod, src, dst,
+                   dst_normals, src_normals, w)

@@ -1,13 +1,16 @@
-"""Pooled-grid ICP loop (cupoch RegistrationICP, registration.cu).
+"""Grid ICP loops (cupoch RegistrationICP, registration.cu): over the
+pooled grid (`icp_core_pool`) and over the run grid
+(`icp_core_rungrid`, the fallback when the pool plan is rejected).
 
-Each iteration is one pass over the pooled grid (`knn/poolgrid.py`):
-the slot kernel picks correspondences, the epilogue reduces the
-Gauss-Newton (or Kabsch) sums on the device, and only those 32 floats
-come back to the host. The loop is a Python loop: every iteration
-reads the sums, and the host decides whether to re-bin (the pose has
-moved past the grid margin since the last binning, bounded exactly
-over the source AABB corners), forms the 6x6 solve or the 3x3 Kabsch
-SVD in f32, composes the pose and tests convergence. So the pose, the
+Each iteration is one pass over the grid: on the pooled grid the slot
+kernel picks correspondences and the epilogue reduces the Gauss-Newton
+(or Kabsch) sums on the device; on the run grid one fused kernel does
+both. Only those 32 floats come back to the host. The loop is a Python
+loop: every iteration reads the sums, and the host decides whether to
+re-bin (the pose has moved past the grid margin since the last
+binning, bounded exactly over the source AABB corners), forms the 6x6
+solve or the 3x3 Kabsch SVD in f32, composes the pose and tests
+convergence. So the pose, the
 re-binning bound and the solve live on the host, where their few
 hundred scalar operations cost microseconds; the point clouds, the
 grid and both passes stay on the device.
@@ -17,10 +20,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..knn import poolgrid, rungrid
+from ..knn import poolgrid, rungrid, rungrid_fused
 from ..utility import eigen as ueigen
-from ..utility.transforms import make_transform
+from ..utility.transforms import transform_points
 from .estimation import TransformationEstimationType
+from .kabsch import kabsch_solve
 
 _HOST = torch.device("cpu")
 
@@ -85,20 +89,13 @@ def make_target_attrs(est_type, tgt_pts, tgt_normals, tgt_aux=None):
 
 def kabsch_from_sums(sums) -> torch.Tensor:
     """Weighted Kabsch update from the reduced statistics (slot layout:
-    rungrid.N_SUMS)."""
+    rungrid.N_SUMS): normalised and centred into `kabsch_stats` form."""
     cnt = sums[0].clamp(min=1e-12)
     t_mean = sums[1:4] / cnt
     p_mean = sums[4:7] / cnt
     H = sums[7:16].reshape(3, 3) / cnt - torch.outer(t_mean, p_mean)
-    U, S, Vh = torch.linalg.svd(H)
-    V = Vh.T
-    det = torch.linalg.det(V @ U.T)
-    D = torch.diag(torch.stack([det.new_ones(()), det.new_ones(()), det]))
-    R = (V @ D) @ U.T
-    t = p_mean - R @ t_mean
-    T = make_transform(R, t)
-    ok = (sums[0] >= 3) & torch.isfinite(T).all()
-    return torch.where(ok, T, torch.eye(4, dtype=T.dtype, device=T.device))
+    return kabsch_solve(torch.cat([cnt.reshape(1), t_mean, p_mean,
+                                   H.reshape(-1), sums[0:1]]))
 
 
 def gn_from_sums(sums) -> torch.Tensor:
@@ -190,13 +187,76 @@ def icp_core_pool(src, src_mask, src_aux, grid: poolgrid.PoolGrid,
     fit = cnt / n_src.to(cnt.device)
     rmse = torch.where(cnt > 0, torch.sqrt(err / cnt.clamp(min=1.0)), 0.0)
 
-    # scatter correspondence indices back to source order
     idx_bin = torch.where(ok, idxf, rungrid.INVALID_INDEX)
-    flat_q = qidx.reshape(-1)
-    okq = flat_q >= 0
-    slot = torch.where(okq, flat_q, Np).long()
-    idx_src = torch.full((Np + 1,), rungrid.INVALID_INDEX,
-                         dtype=torch.int32, device=src.device)
-    idx_src[slot] = torch.where(okq, idx_bin.reshape(-1),
-                                rungrid.INVALID_INDEX)
-    return T, idx_src[:Np], fit, rmse, it, nq
+    idx_src = rungrid.scatter_to_source(qidx, idx_bin, Np,
+                                        rungrid.INVALID_INDEX)
+    return T, idx_src, fit, rmse, it, nq
+
+
+def icp_core_rungrid(src, src_mask, src_normals, grid: rungrid.RunGrid,
+                     init_T, max_dist, rebin_margin, relative_fitness,
+                     relative_rmse, qcap: int,
+                     est_type: TransformationEstimationType,
+                     max_iteration: int):
+    """Run-grid ICP loop on the device of `src` and `grid`: each
+    iteration is one fused GN pass (kernel 2), then one final
+    correspondence pass at the returned pose.
+
+    src [Np, 3] padded source points, src_mask [Np], src_normals
+    [Np, 3] (SymmetricMethod only). Returns (T [4, 4] f32 on the host,
+    idx [Np] int32 on the device (-1 none), fitness, rmse (0-d tensors
+    on the device), iterations run)."""
+    Np = src.shape[0]
+    est = _est_code(est_type)
+    n_src = src_mask.sum().to(torch.float32).clamp(min=1.0).to(_HOST)
+    sym = est_type == TransformationEstimationType.SymmetricMethod
+    corners = _aabb_corners(src, src_mask).to(_HOST)
+    r2 = torch.tensor(max_dist, dtype=torch.float32) ** 2
+    margin = float(np.float32(rebin_margin))
+    rel_fit = torch.tensor(relative_fitness, dtype=torch.float32)
+    rel_rmse = torch.tensor(relative_rmse, dtype=torch.float32)
+
+    def rebin(T):
+        pos = transform_points(T.to(src.device), src)
+        return rungrid.bin_queries(
+            src, pos, grid.origin, grid.cell_size, grid.dims, qcap,
+            extra=src_normals if sym else None, n_extra=3 if sym else 0,
+            mask=src_mask)
+
+    T = torch.as_tensor(init_T, dtype=torch.float32).to(_HOST)
+    T_bin = T
+    qsoa, qidx = rebin(T)
+    fit = rmse = torch.tensor(-1.0)
+    it = 0
+    while it < max_iteration:
+        if _displacement_bound(T, T_bin, corners) > margin:
+            qsoa, qidx = rebin(T)
+            T_bin = T
+        params = rungrid.make_params(T, r2, grid)
+        sums = rungrid_fused.fused_query(grid, qsoa, qidx, params, est,
+                                         False).to(_HOST)
+        fit2, rmse2 = _stats_from_sums(est_type, sums, n_src)
+        converged = bool(((fit - fit2).abs() < rel_fit)
+                         & ((rmse - rmse2).abs() < rel_rmse)) and it > 0
+        it += 1
+        if converged:
+            break
+        T = _update_from_sums(est_type, sums) @ T
+        fit, rmse = fit2, rmse2
+
+    # final evaluation at the returned transform
+    if _displacement_bound(T, T_bin, corners) > margin:
+        qsoa, qidx = rebin(T)
+    params = rungrid.make_params(T, r2, grid)
+    d2, nidx = rungrid_fused.fused_query(grid, qsoa, qidx, params,
+                                         rungrid.EST_NONE, True)
+    ok = torch.isfinite(d2) & (qidx >= 0)
+    cnt = ok.sum().to(torch.float32)
+    err = torch.where(ok, d2, 0.0).sum()
+    fit = cnt / n_src.to(cnt.device)
+    rmse = torch.where(cnt > 0, torch.sqrt(err / cnt.clamp(min=1.0)), 0.0)
+    idx_bin = torch.where(ok, -nidx, float(rungrid.INVALID_INDEX)) \
+        .to(torch.int32)
+    idx_src = rungrid.scatter_to_source(qidx, idx_bin, Np,
+                                        rungrid.INVALID_INDEX)
+    return T, idx_src, fit, rmse, it

@@ -1,12 +1,15 @@
-"""ICP registration entry point (cupoch RegistrationICP,
-registration.cu).
+"""ICP registration entry points (cupoch RegistrationICP and
+EvaluateRegistration, registration.cu).
 
-Only the pooled-grid branch is ported: targets of more than
-`_GRID_THRESHOLD` points with a PointToPoint, PointToPlane or
-SymmetricMethod estimator whose grid plan is accepted. The other
-branches of the JAX package's `registration_icp` (brute force for
-small targets, the run-grid fallback for a rejected plan, Colored and
-Generalized ICP) raise NotImplementedError naming the branch.
+`registration_icp` takes, for PointToPoint, PointToPlane and
+SymmetricMethod: the pooled grid for targets of more than
+`_GRID_THRESHOLD` points; the run grid when the pool plan is rejected;
+brute-force 1-NN in the generic loop (`_icp_core`) for smaller targets.
+Still to port, and raising NotImplementedError naming the branch:
+Colored and Generalized ICP, and large targets that both grid plans
+reject (the JAX package's roll, cell and hash grids).
+`evaluate_registration` makes one correspondence pass: over the run
+grid above the threshold when its plan is accepted, else brute force.
 """
 from __future__ import annotations
 
@@ -15,15 +18,20 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..knn import poolgrid
+from ..knn import bruteforce, poolgrid, rungrid, rungrid_fused
 from ..utility import console
 from ..utility.shape import bucket_size, pad_axis0, valid_mask
+from ..utility.transforms import transform_points
 from . import fused_icp
 from .estimation import (
     TransformationEstimation,
     TransformationEstimationPointToPoint,
     TransformationEstimationType,
+    normal_system,
+    solve_normal_system,
 )
+
+_HOST = torch.device("cpu")
 
 
 class ICPConvergenceCriteria:
@@ -59,8 +67,8 @@ class RegistrationResult:
                 f"of size {len(self.correspondence_set)}.")
 
 
-_GRID_THRESHOLD = 20000  # the pooled grid serves targets above this size
-_POOL_ESTIMATORS = (TransformationEstimationType.PointToPoint,
+_GRID_THRESHOLD = 20000  # below this, brute-force 1-NN is faster than a grid
+_PORTED_ESTIMATORS = (TransformationEstimationType.PointToPoint,
                     TransformationEstimationType.PointToPlane,
                     TransformationEstimationType.SymmetricMethod)
 
@@ -88,6 +96,81 @@ def _make_result(T, idx, fit, rmse, n_src):
     return res
 
 
+def _correspondence_fn(tgt, tgt_mask, max_dist, use_grid):
+    """1-NN within max_dist for transformed source points: (idx, d2),
+    -1 / inf where none. Only the brute-force branch is ported."""
+    if use_grid:
+        raise NotImplementedError(
+            f"the {use_grid if isinstance(use_grid, str) else 'hash'} grid "
+            f"correspondence branch is not ported yet")
+    r2 = torch.tensor(max_dist, dtype=torch.float32) ** 2
+
+    def corres(src_t):
+        idx, d2 = bruteforce.nn_search(src_t, tgt, data_mask=tgt_mask)
+        ok = d2 <= r2.to(d2.device)
+        return torch.where(ok, idx, -1), torch.where(ok, d2, float("inf"))
+
+    return corres
+
+
+def _icp_core(src, src_mask, src_normals, tgt, tgt_mask, tgt_normals,
+              init_T, max_dist, relative_fitness, relative_rmse,
+              est_type: TransformationEstimationType, max_iteration: int,
+              use_grid=False):
+    """The generic ICP loop on the device of the clouds: correspondence
+    (`_correspondence_fn`), the estimator's normal system, a host solve
+    and the pose composition, then the convergence test. Each iteration
+    reads the system and the fitness statistics in one device-to-host
+    copy. Returns (T [4, 4] f32 on the host, idx [Np] int32 on the
+    device, fitness, rmse (host 0-d tensors), iterations run)."""
+    dev = src.device
+    n_src = src_mask.sum().to(torch.float32).clamp(min=1.0).to(_HOST)
+    corres_fn = _correspondence_fn(tgt, tgt_mask, max_dist, use_grid)
+    M = tgt.shape[0]
+    sym = est_type == TransformationEstimationType.SymmetricMethod
+    rel_fit = torch.tensor(relative_fitness, dtype=torch.float32)
+    rel_rmse = torch.tensor(relative_rmse, dtype=torch.float32)
+
+    def eval_state(T):
+        src_t = transform_points(T.to(dev), src)
+        idx, d2 = corres_fn(src_t)
+        idx = torch.where(src_mask, idx, -1)
+        ok = idx >= 0
+        head = torch.stack([ok.sum().to(torch.float32),
+                            torch.where(ok, d2, 0.0).sum()])
+        return src_t, idx, ok, head
+
+    def system(T, src_t, idx, ok):
+        ti = idx.clamp(0, M - 1).long()
+        src_n = src_normals @ T[:3, :3].to(dev).T if sym else None
+        return normal_system(est_type, src_t, tgt[ti], tgt_normals[ti],
+                             src_n, ok.to(torch.float32))
+
+    T = torch.as_tensor(init_T, dtype=torch.float32).to(_HOST)
+    src_t, idx, ok, head = eval_state(T)
+    fit = rmse = None
+    it = 0
+    while True:
+        more = it < max_iteration
+        parts = [head, system(T, src_t, idx, ok)] if more else [head]
+        host = torch.cat(parts).to(_HOST)     # the iteration's one read
+        cnt, err = host[0], host[1]
+        fit2 = cnt / n_src
+        rmse2 = torch.where(cnt > 0, torch.sqrt(err / cnt.clamp(min=1.0)),
+                            0.0)
+        if fit is not None and bool(((fit - fit2).abs() < rel_fit)
+                                    & ((rmse - rmse2).abs() < rel_rmse)):
+            fit, rmse = fit2, rmse2
+            break
+        fit, rmse = fit2, rmse2
+        if not more:
+            break
+        T = solve_normal_system(est_type, host[2:]) @ T
+        it += 1
+        src_t, idx, ok, head = eval_state(T)
+    return T, idx, fit, rmse, it
+
+
 def registration_icp(
     source,
     target,
@@ -102,7 +185,7 @@ def registration_icp(
     estimation = estimation or TransformationEstimationPointToPoint()
     criteria = criteria or ICPConvergenceCriteria()
     est_type = estimation.get_transformation_estimation_type()
-    if est_type not in _POOL_ESTIMATORS:
+    if est_type not in _PORTED_ESTIMATORS:
         raise NotImplementedError(
             f"registration_icp: the {est_type.name} branch is not ported "
             f"yet")
@@ -119,16 +202,20 @@ def registration_icp(
             and not source.has_normals():
         console.log_error("SymmetricMethod requires source normals.")
     n_tgt = len(target)
-    if n_tgt <= _GRID_THRESHOLD:
-        raise NotImplementedError(
-            f"registration_icp: the brute-force branch for targets of "
-            f"{_GRID_THRESHOLD} points or fewer is not ported yet "
-            f"(target has {n_tgt})")
-
     init_T = torch.eye(4, dtype=torch.float32) if init is None \
         else torch.as_tensor(np.asarray(init, np.float32))
     src, src_mask, src_normals = _prep(source, True)
     tgt, tgt_mask, tgt_normals = _prep(target, need_tgt_normals)
+
+    if n_tgt <= _GRID_THRESHOLD:
+        T, idx, fit, rmse, it = _icp_core(
+            src, src_mask, src_normals, tgt, tgt_mask, tgt_normals, init_T,
+            max_correspondence_distance, criteria.relative_fitness,
+            criteria.relative_rmse, est_type, criteria.max_iteration)
+        console.log_debug("ICP finished after %s iterations", it)
+        res = _make_result(T, idx, fit, rmse, len(source))
+        res.iterations = it
+        return res
 
     src_np = source.points.cpu().numpy()
     initn = init_T.numpy()
@@ -140,9 +227,10 @@ def registration_icp(
         tgt_np, max_correspondence_distance, query_points=src_np_t,
         est=est_code)
     if pplan is None:
-        raise NotImplementedError(
-            "registration_icp: the run-grid fallback for a rejected pool "
-            "plan is not ported yet")
+        return _registration_icp_rungrid(
+            source, src, src_mask, src_normals, tgt, tgt_mask, attrs,
+            est_code, src_np_t, tgt_np, init_T, max_correspondence_distance,
+            est_type, criteria)
 
     def build(plan):
         return poolgrid.make_poolgrid(
@@ -179,3 +267,71 @@ def registration_icp(
         console.log_warning("pool query binning dropped %d source points",
                             res.n_dropped_queries)
     return res
+
+
+def _registration_icp_rungrid(source, src, src_mask, src_normals, tgt,
+                              tgt_mask, attrs, est_code, src_np_t, tgt_np,
+                              init_T, max_dist, est_type, criteria):
+    """The run-grid fallback of `registration_icp`, for targets whose
+    pool plan is rejected (pool cells that would need a cap above
+    128)."""
+    plan = rungrid.plan_rungrid(tgt_np, max_dist, query_points=src_np_t,
+                                nch=attrs.shape[1])
+    if plan is None:
+        raise NotImplementedError(
+            "registration_icp: both grid plans reject this target; the "
+            "roll, cell and hash grid branches are not ported yet")
+    grid = rungrid.make_rungrid(
+        tgt, attrs, plan["origin"], plan["cell_size"], plan["dims"],
+        plan["cap"], mask=tgt_mask, est=est_code, kc=plan["kc"])
+    T, idx, fit, rmse, it = fused_icp.icp_core_rungrid(
+        src, src_mask, src_normals, grid, init_T, max_dist,
+        plan["rebin_margin"], criteria.relative_fitness,
+        criteria.relative_rmse, plan["qcap"], est_type,
+        criteria.max_iteration)
+    console.log_debug("run-grid ICP finished after %s iterations", it)
+    res = _make_result(T, idx, fit, rmse, len(source))
+    res.iterations = it
+    return res
+
+
+def evaluate_registration(source, target,
+                          max_correspondence_distance: float,
+                          transformation=None) -> RegistrationResult:
+    """cupoch EvaluateRegistration: fitness, inlier rmse and the
+    correspondence set of `source` under `transformation`. One
+    correspondence pass: a run-grid pass (kernel 2) for targets above
+    the grid threshold, brute force otherwise."""
+    if source.points.device != target.points.device:
+        raise ValueError("source and target must lie on one device")
+    T = torch.eye(4, dtype=torch.float32) if transformation is None \
+        else torch.as_tensor(np.asarray(transformation, np.float32))
+    src, src_mask, _ = _prep(source, False)
+    tgt, tgt_mask, _ = _prep(target, False)
+    if len(target) > _GRID_THRESHOLD:
+        Tn = T.numpy()
+        src_t_np = source.points.cpu().numpy() @ Tn[:3, :3].T + Tn[:3, 3]
+        plan = rungrid.plan_rungrid(
+            target.points.cpu().numpy(), max_correspondence_distance,
+            margin=0.0, query_points=src_t_np, nch=0)
+        if plan is not None:
+            grid = rungrid.make_rungrid(
+                tgt, tgt.new_zeros((tgt.shape[0], 0)), plan["origin"],
+                plan["cell_size"], plan["dims"], plan["cap"], mask=tgt_mask)
+            idx, d2 = rungrid_fused.query_nn_rungrid(
+                grid, transform_points(T.to(src.device), src),
+                max_correspondence_distance, plan["qcap"],
+                query_mask=src_mask)
+            ok = idx >= 0
+            cnt, err = torch.stack([ok.sum().to(torch.float32),
+                                    torch.where(ok, d2, 0.0).sum()]) \
+                .to(_HOST).numpy()
+            fit = float(cnt) / max(len(source), 1)
+            rmse = float(np.sqrt(err / cnt)) if cnt else 0.0
+            return _make_result(T, idx, fit, rmse, len(source))
+    zeros = torch.zeros_like(src)
+    T_out, idx, fit, rmse, _ = _icp_core(
+        src, src_mask, zeros, tgt, tgt_mask, torch.zeros_like(tgt), T,
+        max_correspondence_distance, 0.0, 0.0,
+        TransformationEstimationType.PointToPoint, 0)
+    return _make_result(T_out, idx, fit, rmse, len(source))

@@ -2,8 +2,8 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and compiles with
 `nvcc` into `_build/lib<name>-<hash>.so` inside the package, at first
-use; the hash of the source names the library, so an edited source
-builds anew. `build_all` starts one `nvcc` per source, all at once.
+use; the hash of the source and of the shared headers (`csrc/*.cuh`)
+names the library, so an edited source or header builds anew. `build_all` starts one `nvcc` per source, all at once.
 Nothing here runs at import: the CPU tests import every module on a
 machine with no `nvcc`.
 """
@@ -38,9 +38,14 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """The library's path, named by the hash of its source and of every
+    shared header under `csrc/` (`*.cuh`)."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def _sources() -> List[str]:

@@ -19,6 +19,10 @@ import torch
 import cupoch_tpu.registration as jreg
 from cupoch_tpu.geometry import PointCloud as JPointCloud
 from cupoch_tpu.knn import poolgrid as jpg
+from cupoch_tpu.knn import rungrid as jrg
+from cupoch_tpu.registration import estimation as jest
+from cupoch_tpu.registration.kabsch import kabsch as jkabsch
+from cupoch_tpu.registration.registration import _icp_core as j_icp_core
 from cupoch_tpu.registration import fused_icp as jicp
 from cupoch_tpu.registration.estimation import (
     TransformationEstimationType as JET,
@@ -26,7 +30,10 @@ from cupoch_tpu.registration.estimation import (
 import cupoch_tpu_torch.registration as treg
 from cupoch_tpu_torch.geometry import PointCloud as TPointCloud
 from cupoch_tpu_torch.knn import poolgrid as tpg
+from cupoch_tpu_torch.knn import rungrid as trg
+from cupoch_tpu_torch.registration import estimation as test_
 from cupoch_tpu_torch.registration import fused_icp as ticp
+from cupoch_tpu_torch.registration import kabsch as tkabsch
 from cupoch_tpu_torch.registration.estimation import (
     TransformationEstimationType as TET,
 )
@@ -196,15 +203,220 @@ def test_torch_registration_icp_matches_jax(rng):
     assert len(cj & ct) >= 0.995 * max(len(cj), len(ct))
 
 
-def test_torch_registration_icp_unported_branches_raise(rng):
+@pytest.mark.parametrize("branch", ["ColoredICP", "GeneralizedICP",
+                                    "grids_reject"])
+def test_torch_registration_icp_unported_branches_raise(rng, branch):
+    """What stays unported raises NotImplementedError naming it: Colored
+    and Generalized ICP, and a target above the grid threshold that
+    both the pool plan and the run plan reject (the JAX package's
+    roll, cell and hash grids)."""
+    if branch == "grids_reject":
+        # 21k points in a 0.15 cube: every grid cell would need a cap
+        # above 128
+        big = TPointCloud(_cloud(rng, 21000) * 0.15, device="cpu")
+        tgt_np = big.points.numpy()
+        assert tpg.plan_poolgrid(tgt_np, 0.05, query_points=tgt_np) is None
+        assert trg.plan_rungrid(tgt_np, 0.05, query_points=tgt_np) is None
+        with pytest.raises(NotImplementedError, match="roll, cell and hash"):
+            treg.registration_icp(big, big, 0.05)
+        return
     small = TPointCloud(_cloud(rng, 1000), device="cpu")
-    with pytest.raises(NotImplementedError, match="brute-force"):
-        treg.registration_icp(small, small, 0.05)
-    big = TPointCloud(_cloud(rng, 21000), device="cpu")
-    with pytest.raises(NotImplementedError, match="ColoredICP"):
-        treg.registration_icp(
-            big, big, 0.05,
-            estimation=treg.TransformationEstimationForColoredICP())
+    est = getattr(treg, "TransformationEstimationFor" + branch)()
+    with pytest.raises(NotImplementedError, match=branch):
+        treg.registration_icp(small, small, 0.05, estimation=est)
+
+
+@pytest.mark.parametrize("est_name", ESTS)
+def test_torch_kabsch_and_gn_updates_match_jax(rng, est_name):
+    """The per-pair updates of the generic loop, and the Kabsch entry
+    with a correspondence list, on the same pairs (tolerance 2e-5)."""
+    tgt, tn, src, _ = _rigid_pair(rng, 400, 0.02, [0.004, -0.002, 0.003])
+    sn = _normals(rng, 400)
+    w = (rng.uniform(size=400) > 0.2).astype(np.float32)
+    fn = {"PointToPoint": "update_point_to_point",
+          "PointToPlane": "update_point_to_plane",
+          "SymmetricMethod": "update_symmetric"}[est_name]
+    Uj = getattr(jest, fn)(*(jnp.asarray(x) for x in (src, tgt, tn, sn, w)))
+    Ut = getattr(test_, fn)(*(torch.as_tensor(x)
+                              for x in (src, tgt, tn, sn, w)))
+    assert Ut.device.type == "cpu" and Ut.dtype == torch.float32
+    np.testing.assert_allclose(Ut.numpy(), np.asarray(Uj), atol=2e-5)
+    if est_name == "PointToPoint":
+        corres = np.stack([np.arange(400), np.arange(400)], -1)
+        corres[w == 0] = -1
+        Kj = jkabsch(jnp.asarray(src), jnp.asarray(tgt),
+                            jnp.asarray(corres))
+        Kt = tkabsch.kabsch(torch.as_tensor(src), torch.as_tensor(tgt),
+                            torch.as_tensor(corres))
+        np.testing.assert_allclose(Kt.numpy(), np.asarray(Kj), atol=2e-5)
+        np.testing.assert_allclose(Kt.numpy(), Ut.numpy(), atol=2e-5)
+    else:
+        J = np.concatenate([np.cross(src, tn), tn], -1)
+        r = ((src - tgt) * tn).sum(-1)
+        Gj = jest._gn_update(*(jnp.asarray(x) for x in (J, r, w)))
+        Gt = test_._gn_update(*(torch.as_tensor(x) for x in (J, r, w)))
+        np.testing.assert_allclose(Gt.numpy(), np.asarray(Gj), atol=2e-5)
+
+
+@pytest.mark.parametrize("est_name", ESTS)
+def test_torch_icp_core_rungrid_matches_jax(rng, est_name):
+    """The run-grid loop called directly on grids built by each package
+    from the same cloud (pose 1e-4, fitness 1e-3)."""
+    n = 4000
+    tgt, tn, src, Tgt = _rigid_pair(rng, n, 0.03, [0.012, -0.008, 0.004])
+    src_n = tn @ Tgt[:3, :3] if est_name == "SymmetricMethod" \
+        else _normals(rng, n)
+    r = 0.07
+    mask = np.ones(n, bool)
+    aj, code = jicp.make_target_attrs(JET[est_name], jnp.asarray(tgt),
+                                      jnp.asarray(tn))
+    plan = jrg.plan_rungrid(tgt, r, margin=0.25, query_points=src)
+    gj = jrg.make_rungrid(jnp.asarray(tgt), aj, plan["origin"],
+                          plan["cell_size"], plan["dims"], plan["cap"],
+                          est=code)
+    Tj, idxj, fitj, rmsej, itj = jicp.icp_core_rungrid(
+        jnp.asarray(src), jnp.asarray(mask), jnp.asarray(src_n), gj,
+        jnp.eye(4, dtype=jnp.float32), jnp.float32(r),
+        plan["rebin_margin"], jnp.float32(1e-6), jnp.float32(1e-6),
+        plan["qcap"], JET[est_name], 30)
+    at, _ = ticp.make_target_attrs(TET[est_name], torch.as_tensor(tgt),
+                                   torch.as_tensor(tn))
+    gt = trg.make_rungrid(torch.as_tensor(tgt), at, plan["origin"],
+                          plan["cell_size"], plan["dims"], plan["cap"],
+                          est=code)
+    Tt, idxt, fitt, rmset, itt = ticp.icp_core_rungrid(
+        torch.as_tensor(src), torch.as_tensor(mask),
+        torch.as_tensor(src_n.astype(np.float32)), gt, torch.eye(4), r,
+        plan["rebin_margin"], 1e-6, 1e-6, plan["qcap"], TET[est_name], 30)
+    Tt = Tt.numpy()
+    assert np.abs(Tt - np.asarray(Tj)).max() < 1e-4
+    assert np.abs(Tt - Tgt).max() < 2e-3
+    assert abs(float(fitt) - float(fitj)) < 1e-3 and float(fitt) > 0.97
+    assert abs(float(rmset) - float(rmsej)) < 1e-4
+    assert 0 < itt <= 30 and abs(itt - int(itj)) <= 2
+    assert idxt.shape == (n,) and idxt.dtype == torch.int32
+    same = (idxt.numpy() == np.asarray(idxj)).mean()
+    assert same >= 0.995
+
+
+def test_torch_registration_icp_fallback_matches_jax(rng):
+    """The public entry on a target above the grid threshold whose pool
+    plan is rejected (cells would need a cap above 128), so both
+    packages take the run-grid fallback: 30k points in [0, 0.43]^3
+    (pose 1e-4, correspondences >= 99.5% equal)."""
+    m = 30000
+    tgt, tn, src, Tgt = _rigid_pair(rng, m, 0.01, [0.003, -0.004, 0.002])
+    tgt, src = tgt * 0.43, src * 0.43
+    Tgt[:3, 3] *= 0.43
+    radius = 0.05
+    assert tpg.plan_poolgrid(tgt, radius, query_points=src,
+                             est=tpg.EST_PT2PL) is None
+    assert trg.plan_rungrid(tgt, radius, query_points=src) is not None
+    crit = dict(max_iteration=4)
+    jt, js = JPointCloud(jnp.asarray(tgt)), JPointCloud(jnp.asarray(src))
+    jt.normals = jnp.asarray(tn)
+    tt, ts = TPointCloud(tgt, device="cpu"), TPointCloud(src, device="cpu")
+    tt.normals = tn
+    rj = jreg.registration_icp(
+        js, jt, radius,
+        estimation=jreg.TransformationEstimationPointToPlane(),
+        criteria=jreg.ICPConvergenceCriteria(**crit))
+    rt = treg.registration_icp(
+        ts, tt, radius,
+        estimation=treg.TransformationEstimationPointToPlane(),
+        criteria=treg.ICPConvergenceCriteria(**crit))
+    assert np.abs(rt.transformation - rj.transformation).max() < 1e-4
+    assert np.abs(rt.transformation - Tgt).max() < 1e-3
+    assert abs(rt.fitness - rj.fitness) < 1e-3 and rt.fitness > 0.99
+    assert abs(rt.inlier_rmse - rj.inlier_rmse) < 1e-5
+    assert 0 < rt.iterations <= 4
+    cj = {tuple(r) for r in rj.correspondence_set}
+    ct = {tuple(r) for r in rt.correspondence_set}
+    assert len(cj & ct) >= 0.995 * max(len(cj), len(ct))
+
+
+@pytest.mark.parametrize("est_name", ESTS)
+def test_torch_registration_icp_bruteforce_matches_jax(rng, est_name):
+    """The public entry on a target of 20k points or fewer: both take
+    the brute-force branch of the generic loop (pose 1e-4)."""
+    m = 3000
+    tgt, tn, src, Tgt = _rigid_pair(rng, m, 0.02, [0.006, -0.004, 0.003])
+    sn = tn @ Tgt[:3, :3]
+    radius = 0.08
+    jt, js = JPointCloud(jnp.asarray(tgt)), JPointCloud(jnp.asarray(src))
+    jt.normals, js.normals = jnp.asarray(tn), jnp.asarray(sn)
+    tt, ts = TPointCloud(tgt, device="cpu"), TPointCloud(src, device="cpu")
+    tt.normals, ts.normals = tn, sn
+    est = "TransformationEstimation" + est_name
+    rj = jreg.registration_icp(js, jt, radius,
+                               estimation=getattr(jreg, est)(),
+                               criteria=jreg.ICPConvergenceCriteria(
+                                   max_iteration=30))
+    rt = treg.registration_icp(ts, tt, radius,
+                               estimation=getattr(treg, est)(),
+                               criteria=treg.ICPConvergenceCriteria(
+                                   max_iteration=30))
+    assert np.abs(rt.transformation - rj.transformation).max() < 1e-4
+    assert np.abs(rt.transformation - Tgt).max() < 1e-3
+    assert abs(rt.fitness - rj.fitness) < 1e-3 and rt.fitness > 0.99
+    assert abs(rt.inlier_rmse - rj.inlier_rmse) < 1e-5
+    assert 0 < rt.iterations <= 30
+    cj = {tuple(r) for r in rj.correspondence_set}
+    ct = {tuple(r) for r in rt.correspondence_set}
+    assert len(cj & ct) >= 0.999 * max(len(cj), len(ct))
+
+
+def test_torch_icp_core_generic_loop_matches_jax(rng):
+    """The generic loop called directly: the same iteration count and
+    pose as the JAX while_loop, and max_iteration=0 evaluates only."""
+    m = 2000
+    tgt, tn, src, _ = _rigid_pair(rng, m, 0.02, [0.006, -0.004, 0.003])
+    mask = np.ones(m, bool)
+    z = np.zeros_like(tgt)
+    args_j = [jnp.asarray(x) for x in (src, mask, z, tgt, mask, tn)]
+    args_t = [torch.as_tensor(x) for x in (src, mask, z, tgt, mask, tn)]
+    for iters in (0, 25):
+        Tj, idxj, fitj, rmsej, itj = j_icp_core(
+            *args_j, jnp.eye(4, dtype=jnp.float32), jnp.float32(0.08),
+            jnp.float32(1e-6), jnp.float32(1e-6), JET.PointToPlane, iters,
+            False)
+        Tt, idxt, fitt, rmset, itt = treg.registration._icp_core(
+            *args_t, torch.eye(4), 0.08, 1e-6, 1e-6, TET.PointToPlane, iters)
+        assert itt == int(itj)
+        assert np.abs(Tt.numpy() - np.asarray(Tj)).max() < 1e-4
+        assert abs(float(fitt) - float(fitj)) < 1e-3
+        assert abs(float(rmset) - float(rmsej)) < 1e-5
+        assert (idxt.numpy() == np.asarray(idxj)).mean() >= 0.999
+
+
+@pytest.mark.parametrize("branch", ["grid", "bruteforce"])
+def test_torch_evaluate_registration_matches_jax(rng, branch):
+    """One correspondence pass at a given pose: the run grid above the
+    grid threshold, brute force below it (fitness and rmse 1e-5,
+    correspondences >= 99.9% equal)."""
+    m = 24000 if branch == "grid" else 5000
+    tgt, _, src, Tgt = _rigid_pair(rng, m, 0.01, [0.002, -0.003, 0.001])
+    # a third of the source moved far off: those points find no match
+    src[::3] += np.float32(5.0)
+    T = Tgt.copy()
+    T[:3, 3] += np.float32([0.003, 0.0, -0.002])
+    radius = 0.04
+    assert (m > jreg.registration._GRID_THRESHOLD) == (branch == "grid")
+    if branch == "grid":
+        assert trg.plan_rungrid(tgt, radius, margin=0.0,
+                                query_points=src) is not None
+    rj = jreg.evaluate_registration(JPointCloud(jnp.asarray(src)),
+                                    JPointCloud(jnp.asarray(tgt)), radius,
+                                    T)
+    rt = treg.evaluate_registration(TPointCloud(src, device="cpu"),
+                                    TPointCloud(tgt, device="cpu"), radius, T)
+    assert 0.6 < rt.fitness < 0.7
+    assert abs(rt.fitness - rj.fitness) < 1e-5
+    assert abs(rt.inlier_rmse - rj.inlier_rmse) < 1e-5
+    np.testing.assert_array_equal(rt.transformation, T)
+    cj = {tuple(r) for r in rj.correspondence_set}
+    ct = {tuple(r) for r in rt.correspondence_set}
+    assert len(cj & ct) >= 0.999 * max(len(cj), len(ct))
 
 
 def test_torch_entry_points_need_a_device():

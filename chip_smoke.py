@@ -21,6 +21,10 @@ Phases, each printed on its own line:
        [0,1.4]^3, whose pool plan is rejected);
      - the run-grid Gaussian-moment kernel at the FilterReg plan (the
        geometry of tests/test_filterreg.py scaled to 1M points);
+     - the roll/cell-grid reduce (kernel 4) at the roll plan of the
+       [0,1.4]^3 cloud (identity and true pose) and at the cell plan of
+       a 500k-point wavy sheet, with the time of the nearest library
+       composite (`torch.cdist` + min);
   4. paths, each through the public entry with every launch count set
      to 0 just before it and read just after:
      - `registration_icp` (point-to-plane, 20 iterations, relative
@@ -36,10 +40,19 @@ Phases, each printed on its own line:
        then its loop on a prebuilt grid timed and profiled;
      - `registration_filterreg` on the scaled FilterReg pair (moment
        launches = its E-steps);
+     - Colored ICP and GICP: `registration_colored_icp` (roll grid) and
+       `registration_generalized_icp` from points alone (normals
+       estimated at 1M points; roll grid) on the [0,1.4]^3 cloud, both
+       on the headline pair (pooled grid), and Colored ICP on the sheet
+       (cell grid); kernel-4 launches = iterations + 1 on the roll and
+       cell paths; the roll-grid loop timed and profiled on a prebuilt
+       grid;
      - small inputs, the card against the port's CPU path (the plain
        versions): pooled ICP on a volume and a surface cloud, brute-force
        ICP, `evaluate_registration` on both branches, the run-grid
-       fallback and grid FilterReg;
+       fallback, grid FilterReg, Colored ICP and GICP on the brute-force,
+       roll and cell branches, the brute-force fallback of a target every
+       grid plan rejects, and the hash-grid branch;
   5. one JSON line of per-kernel numbers, then the result line.
 
 Any failure raises and exits non-zero. Without a card it exits
@@ -73,6 +86,16 @@ EVAL_RMSE_MAX = 5e-5
 GMM_RTOL, GMM_ATOL = 2e-5, 1e-5
 NO_LIBRARY = ("no single PyTorch call computes a sorted-lane masked argmin "
               "with a packed-attribute fetch, or these truncated moments")
+NO_LIBRARY_NN = ("no single PyTorch call computes a masked argmin with the "
+                 "smallest-target-index tie rule; composite_ms times "
+                 "torch.cdist + min over the same blocks, which rounds "
+                 "differently and has no r^2 mask")
+# the wavy sheet of the cell-grid runs (the surface of _surface_pair over
+# [0,3]^2 with 2 mm of noise): its pool and roll plans are rejected
+SHEET_POINTS = 500_000
+SHEET_RADIUS = 0.008
+SHEET_SHIFT = (0.004, -0.003, 0.002)
+QUERY_FILL = 1.0e18          # an empty query slot of the roll/cell grids
 
 
 def _rot_z(np, ang):
@@ -120,6 +143,29 @@ def _surface_pair(np, n=40_000):
         + 0.02 * rng.normal(size=n).astype(np.float32)
     tgt = np.concatenate([xy, z[:, None].astype(np.float32)], -1)
     return tgt + np.float32([0.004, -0.003, 0.002]), tgt
+
+
+def _color_field(np, pts):
+    """0.5 + 0.4 sin(4x) cos(3y) on all three channels."""
+    c = 0.5 + 0.4 * np.sin(4.0 * pts[:, :1]) * np.cos(3.0 * pts[:, 1:2])
+    return np.repeat(c, 3, axis=1).astype(np.float32)
+
+
+def _sheet(np, n=SHEET_POINTS, side=3.0, seed=1):
+    """n points on _surface_pair's surface z = 0.25 sin(3x) cos(2y) over
+    [0,side]^2 with N(0, 2 mm) noise, and the surface's unit normals:
+    (points, normals)."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, side, size=(n, 2)).astype(np.float32)
+    x, y = xy[:, 0], xy[:, 1]
+    z = 0.25 * np.sin(3.0 * x) * np.cos(2.0 * y) \
+        + 0.002 * rng.normal(size=n).astype(np.float32)
+    fx = 0.75 * np.cos(3.0 * x) * np.cos(2.0 * y)
+    fy = -0.5 * np.sin(3.0 * x) * np.sin(2.0 * y)
+    nv = np.column_stack([-fx, -fy, np.ones_like(fx)])
+    nv /= np.linalg.norm(nv, axis=1, keepdims=True)
+    return (np.column_stack([xy, z]).astype(np.float32),
+            nv.astype(np.float32))
 
 
 def _time_ms(torch, fn, reps):
@@ -364,6 +410,67 @@ def check_gmm(torch, rungrid, rungrid_gmm, grid, qsoa, qidx, params):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def check_nn_reduce(torch, rollgrid_nn, q_soa, cand, cidx, radius, mode):
+    """Kernel 4 against nn_reduce_plain on the same binned queries: idx
+    equal on every query and d2 bit for bit (both round every operation
+    on its own, in one order); failing that, >= 99.99% equal with every
+    d2 gap within 1 ulp."""
+    r2 = torch.tensor(radius, dtype=torch.float32) ** 2
+    ik, dk = rollgrid_nn.nn_reduce(q_soa, cand, cidx, r2)
+    ip, dp = rollgrid_nn.nn_reduce_plain(q_soa, cand, cidx, r2)
+    torch.cuda.synchronize()
+    valid = q_soa[:, 0] != QUERY_FILL                       # [C, qcap]
+    n_valid = int(valid.sum())
+    same = float(((ik == ip) & valid).sum()) / max(n_valid, 1)
+    exact = torch.equal(ik, ip) and torch.equal(dk, dp)
+    if not torch.equal(torch.isfinite(dk), torch.isfinite(dp)):
+        raise AssertionError(f"nn reduce ({mode}): kernel and plain "
+                             f"disagree on which queries found a target")
+    fin = torch.isfinite(dp)
+    gap = torch.where(fin, (dk - dp).abs(), 0.0)
+    ulp = torch.nextafter(dp.abs(), torch.tensor(float("inf"),
+                                                 device=dp.device)) \
+        - dp.abs()
+    max_err = float(gap.max())
+    if not exact and (same < 0.9999
+                      or float(torch.where(fin, gap - ulp, 0.0).max()) > 0):
+        raise AssertionError(f"nn reduce ({mode}): winners equal on "
+                             f"{same:.6f}, max d2 gap {max_err}")
+    ms = _time_ms(torch, lambda: rollgrid_nn.nn_reduce(q_soa, cand, cidx,
+                                                       r2), TIMED_LAUNCHES)
+    plain_ms = _time_ms(torch, lambda: rollgrid_nn.nn_reduce_plain(
+        q_soa, cand, cidx, r2), 2)
+    # the nearest library yardstick: cdist over the same [qcap] x [KC]
+    # blocks, then the least distance of each query
+    qx = q_soa.transpose(1, 2).contiguous()
+    cx = cand.transpose(1, 2).contiguous()
+    composite_ms = _time_ms(torch, lambda: torch.cdist(qx, cx).min(-1), 3)
+    del qx, cx
+    # least work for this run's data: a cell holding a valid query reads
+    # its whole candidate row (16 bytes a lane; the 27 runs interleave
+    # empty slots with real ones, so no lane can go unread) and its query
+    # rows; an idle cell reads its first query channel; every cell writes
+    # its outputs. 8 f32 operations per (valid query, lane).
+    C, _, qcap = q_soa.shape
+    KC = cand.shape[2]
+    busy = int(valid.any(1).sum())
+    n_bytes = busy * KC * 16 + busy * qcap * 12 + (C - busy) * qcap * 4 \
+        + C * qcap * 8
+    n_ops = n_valid * KC * 8
+    bound_ms, bound_by = _bound(n_bytes, n_ops)
+    print(f"kernel[nn reduce {mode}]: cells {C} (busy {busy}) qcap {qcap} "
+          f"kc {KC}; idx equal on {same:.6f} of {n_valid} valid queries, "
+          f"bit for bit {exact}, max d2 gap {max_err}; kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.2f} ms, cdist+min composite {composite_ms:.3f} "
+          f"ms, bound {bound_ms:.4f} ms by {bound_by} ({n_bytes / 1e9:.3f} "
+          f"GB, {n_ops / 1e9:.2f} G ops); library_ms null: {NO_LIBRARY_NN}")
+    return {"mode": mode, "equal": same, "bit_exact": exact,
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "composite_ms": composite_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": n_bytes, "ops": n_ops,
+            "valid_queries": n_valid, "busy_cells": busy}
+
+
 def main():
     import numpy as np
     import torch
@@ -372,7 +479,8 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this run needs an NVIDIA GPU")
     import cupoch_tpu_torch as ctt
-    from cupoch_tpu_torch.knn import (poolgrid, poolgrid_slot, rungrid,
+    from cupoch_tpu_torch.knn import (cellgrid, poolgrid, poolgrid_slot,
+                                      rollgrid, rollgrid_nn, rungrid,
                                       rungrid_fused, rungrid_gmm)
     from cupoch_tpu_torch.registration import fused_icp
     from cupoch_tpu_torch.registration.estimation import (
@@ -384,12 +492,14 @@ def main():
         poolgrid_slot.launches = 0
         rungrid_fused.launches.update(corres=0, gn=0)
         rungrid_gmm.launches = 0
+        rollgrid_nn.launches = 0
 
     def counts():
         return {"slot": poolgrid_slot.launches,
                 "fused_corres": rungrid_fused.launches["corres"],
                 "fused_gn": rungrid_fused.launches["gn"],
-                "gmm": rungrid_gmm.launches}
+                "gmm": rungrid_gmm.launches,
+                "nn": rollgrid_nn.launches}
 
     # 1. device
     card = subprocess.run(
@@ -526,6 +636,49 @@ def main():
                             torch.eye(4), torch.tensor(trunc) ** 2, rgrid,
                             inv_2s2=1.0 / (2.0 * sigma0 * sigma0)))
     del rgrid, qsoa, qidx
+
+    # 3e. kernel 4 at the roll plan of the fallback cloud, at the identity
+    # and at the true pose, and at the cell plan of the sheet
+    roll_plan = rollgrid.plan_rollgrid(ftgt, RADIUS)
+    if roll_plan is None:
+        raise AssertionError("the fallback cloud's roll plan was rejected")
+    grid4 = rollgrid.build_rollgrid(
+        ftgt_d, roll_plan["origin"], roll_plan["cell_size"],
+        roll_plan["dims"], roll_plan["cap"], mask=mask)
+    print(f"roll plan: dims {roll_plan['dims']} cap {roll_plan['cap']} kc "
+          f"{grid4.cand.shape[2]} ({grid4.cand.numel() * 4 / 1e9:.3f} GB "
+          f"of candidates)")
+    nn_recs = []
+    for mode, T in (("roll identity", np.eye(4, dtype=np.float32)),
+                    ("roll true pose", fT_true)):
+        q = fsrc_d @ torch.as_tensor(T[:3, :3].T, device=dev) \
+            + torch.as_tensor(T[:3, 3], device=dev)
+        q_soa, _ = rollgrid.bin_queries(grid4, q)
+        nn_recs.append(check_nn_reduce(torch, rollgrid_nn, q_soa,
+                                       grid4.cand, grid4.cand_idx, RADIUS,
+                                       mode))
+        del q, q_soa
+    del grid4
+    sheet, sheet_n = _sheet(np)
+    sheet_src = sheet + np.float32(SHEET_SHIFT)
+    if poolgrid.plan_poolgrid(sheet, SHEET_RADIUS, query_points=sheet_src,
+                              est=poolgrid.EST_COLORED) is not None \
+            or rollgrid.plan_rollgrid(sheet, SHEET_RADIUS) is not None:
+        raise AssertionError("the sheet's pool or roll plan was accepted")
+    cplan = cellgrid.plan_cellgrid(sheet, SHEET_RADIUS)
+    if cplan is None:
+        raise AssertionError("the sheet's cell plan was rejected")
+    sheet_d = torch.as_tensor(sheet, device=dev)
+    sheet_src_d = torch.as_tensor(sheet_src, device=dev)
+    grid4 = cellgrid.build_cellgrid(
+        sheet_d, cplan["origin"], cplan["cell_size"], cplan["active"],
+        cplan["dims"], cplan["cap"], cplan["n_active"])
+    print(f"cell plan: dims {cplan['dims']} cap {cplan['cap']} active "
+          f"{cplan['n_active']} kc {grid4.cand.shape[2]}")
+    q_soa, _ = cellgrid.bin_queries(grid4, sheet_src_d)
+    nn_recs.append(check_nn_reduce(torch, rollgrid_nn, q_soa, grid4.cand,
+                                   grid4.cand_idx, SHEET_RADIUS, "cell"))
+    del grid4, q_soa
 
     # 4. paths, through the public entries
     source = ctt.geometry.PointCloud(src_d)
@@ -693,6 +846,12 @@ def main():
                              f"E-steps")
     del rsource, rtarget, rtgt_d, rsrc_d
 
+    colored_gicp_paths(np, torch, ctt, rollgrid, reset_counts, counts,
+                       path_counts, timed, crit, card, roll_plan,
+                       (ftgt, ftn, fsrc, fT_true), (tgt, tn, src, T_true),
+                       (sheet, sheet_n, sheet_src))
+    del ftgt_d, ftn_d, fsrc_d, fsn_d, sheet_d, sheet_src_d
+
     small_inputs(np, ctt, poolgrid, rungrid, tgt, tn, src, T_true, crit,
                  pt2pl)
 
@@ -747,10 +906,138 @@ def main():
         "bound_ms": gmm_rec["bound_ms"],
         "bound_by": gmm_rec["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "rollgrid_nn",
+        "route": "cuda",
+        "source": "cupoch_tpu_torch/csrc/rollgrid_nn.cu",
+        "replaces": "cupoch_tpu/knn/rollgrid.py:215",
+        "launches": sum(c["nn"] for c in path_counts.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in nn_recs),
+        "ms": nn_recs[0]["ms"],
+        "plain_ms": nn_recs[0]["plain_ms"],
+        "bound_ms": nn_recs[0]["bound_ms"],
+        "bound_by": nn_recs[0]["bound_by"],
+        "library_ms": None,
+        "composite_ms": nn_recs[0]["composite_ms"],
+        "modes": {r["mode"]: {k: r[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "composite_ms",
+            "max_abs_err", "bit_exact")} for r in nn_recs},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
+
+
+def _expect(name, c, it, kernel):
+    """Launch counts of a path that runs `kernel` once an iteration plus
+    once for the initial pose, and no other kernel."""
+    want = {k: 0 for k in c}
+    want[kernel] = it + 1
+    if c != want:
+        raise AssertionError(f"{name}: launches {c}, expected {want}")
+
+
+def colored_gicp_paths(np, torch, ctt, rollgrid, reset_counts, counts,
+                       path_counts, timed, crit, card, roll_plan, cube,
+                       headline, sheet_data):
+    """Colored ICP and GICP through their public entries, each held to
+    fitness >= 0.99, every pose entry within POSE_TOL of the truth and
+    its launch counts: on the [0,1.4]^3 cloud (roll grid; GICP from
+    points alone, so `estimate_normals` runs on both 1M-point clouds),
+    on the headline pair (pooled grid) and Colored ICP on the sheet
+    (cell grid). Then the Colored roll-grid loop on a prebuilt grid,
+    timed and profiled."""
+    from cupoch_tpu_torch.registration import registration as regmod
+    from cupoch_tpu_torch.registration.estimation import (
+        TransformationEstimationType as ET,
+    )
+
+    reg = ctt.registration
+    dev = torch.device("cuda")
+
+    def cloud(pts, normals=None, colors=None):
+        pc = ctt.geometry.PointCloud(torch.as_tensor(pts, device=dev))
+        pc.normals, pc.colors = normals, colors
+        return pc
+
+    def run(name, fn, T_true, kernel):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        secs = time.perf_counter() - t0
+        path_counts[name] = c = counts()
+        err = float(np.abs(res.transformation - T_true).max())
+        print(f"path: {name}: fitness {res.fitness:.6f} rmse "
+              f"{res.inlier_rmse:.6e} iterations {res.iterations} pose "
+              f"error {err:.3e} launches {c}; {secs:.3f} s with the "
+              f"precompute, host plan and grid build")
+        if not np.isfinite(res.transformation).all() or err > POSE_TOL \
+                or res.fitness < 0.99:
+            raise AssertionError(f"{name} missed its bounds")
+        _expect(name, c, res.iterations, kernel)
+        return res
+
+    ftgt, ftn, fsrc, fT_true = cube
+    fcols = _color_field(np, ftgt)
+    fsource, ftarget = cloud(fsrc, colors=fcols), cloud(ftgt, ftn, fcols)
+    run(f"registration_colored_icp {len(ftgt)} points in "
+        f"[0,{FALLBACK_SIDE}]^3 (roll grid)",
+        lambda: reg.registration_colored_icp(fsource, ftarget, RADIUS,
+                                             criteria=crit), fT_true, "nn")
+    run(f"registration_generalized_icp {len(ftgt)} points in "
+        f"[0,{FALLBACK_SIDE}]^3 from points alone (roll grid)",
+        lambda: reg.registration_generalized_icp(
+            cloud(fsrc), cloud(ftgt), RADIUS, criteria=crit), fT_true, "nn")
+
+    tgt, tn, src, T_true = headline
+    cols = _color_field(np, tgt)
+    run(f"registration_colored_icp {len(tgt)} points (pooled grid)",
+        lambda: reg.registration_colored_icp(
+            cloud(src, colors=cols), cloud(tgt, tn, cols), RADIUS,
+            criteria=crit), T_true, "slot")
+    run(f"registration_generalized_icp {len(tgt)} points from points "
+        f"alone (pooled grid)",
+        lambda: reg.registration_generalized_icp(
+            cloud(src), cloud(tgt), RADIUS, criteria=crit), T_true, "slot")
+
+    sheet, sheet_n, sheet_src = sheet_data
+    scols = _color_field(np, sheet)
+    sT = np.eye(4, dtype=np.float32)
+    sT[:3, 3] = -np.float32(SHEET_SHIFT)
+    run(f"registration_colored_icp {len(sheet)}-point sheet (cell grid)",
+        lambda: reg.registration_colored_icp(
+            cloud(sheet_src, colors=scols), cloud(sheet, sheet_n, scols),
+            SHEET_RADIUS, criteria=crit), sT, "nn")
+
+    # the Colored roll-grid loop on a prebuilt grid (the precompute made
+    # once, as a tracking loop would)
+    est = reg.TransformationEstimationForColoredICP()
+    src_p, src_m, src_n = regmod._prep(fsource, True)
+    tgt_p, tgt_m, tgt_n = regmod._prep(ftarget, True)
+    aux = regmod._estimator_aux(ET.ColoredICP, est, fsource, ftarget,
+                                RADIUS, src_p.shape[0], tgt_p.shape[0])
+
+    def rbuild():
+        return rollgrid.build_rollgrid(
+            tgt_p, roll_plan["origin"], roll_plan["cell_size"],
+            roll_plan["dims"], roll_plan["cap"], mask=tgt_m)
+
+    def rloop(g):
+        out = regmod._icp_core(
+            src_p, src_m, src_n, tgt_p, tgt_m, tgt_n, torch.eye(4), RADIUS,
+            REL_TOL, REL_TOL, ET.ColoredICP, ITERS, "roll", aux=aux, grid=g)
+        torch.cuda.synchronize()
+        return out
+
+    rbuild_s, rgrid = timed(rbuild)
+    rloop_s, out = timed(lambda: rloop(rgrid))
+    print(f"timing: colored roll-grid secs_per_frame {rbuild_s + rloop_s:.4f} "
+          f"grid_build_s {rbuild_s:.4f} icp_loop_s {rloop_s:.4f} pass_ms "
+          f"{rloop_s / max(out[4], 1) * 1e3:.3f} iterations {out[4]} on "
+          f"{card}")
+    profile(torch, "colored roll-grid ICP loop", lambda: rloop(rgrid),
+            rloop_s)
 
 
 def _nearer_agreement(np, src, tgt, T, run_set, pool_set, held):
@@ -787,11 +1074,46 @@ def _corres_agreement(np, a, b):
     return len(sa & sb) / max(len(sa), len(sb), 1)
 
 
+def _branch_pairs(np):
+    """The CPU tests' Colored/GICP clouds, one a branch of
+    `registration_icp` (tests/test_torch_colored_gicp_icp.py): name ->
+    (source, target, target normals, radius)."""
+    rng = np.random.default_rng(6)
+
+    def unit(v):
+        return (v / np.linalg.norm(v, axis=1, keepdims=True)).astype(
+            np.float32)
+
+    def moved(tgt, ang, t):
+        return ((tgt - np.float32(t)) @ _rot_z(np, ang)).astype(np.float32)
+
+    xy = rng.uniform(-1, 1, size=(800, 2)).astype(np.float32)
+    z = 0.25 * np.sin(2.5 * xy[:, 0]) * np.cos(1.5 * xy[:, 1])
+    surf = np.column_stack([xy, z]).astype(np.float32)
+    fx = 0.625 * np.cos(2.5 * xy[:, 0]) * np.cos(1.5 * xy[:, 1])
+    fy = -0.375 * np.sin(2.5 * xy[:, 0]) * np.sin(1.5 * xy[:, 1])
+    cube = rng.uniform(0, 0.42, size=(30000, 3)).astype(np.float32)
+    two = np.concatenate([rng.uniform(0, 0.1, size=(15000, 3)),
+                          rng.uniform(1.9, 2.0, size=(15000, 3))]).astype(
+        np.float32)
+    return {
+        "brute force": (moved(surf, 0.03, [0.01, -0.015, 0.02]), surf,
+                        unit(np.column_stack([-fx, -fy, np.ones_like(fx)])),
+                        0.2),
+        "roll grid": (moved(cube, 0.01, [0.003, -0.004, 0.002]), cube,
+                      unit(rng.normal(size=cube.shape)), RADIUS),
+        "cell grid": (moved(two, 0.002, [0.001, -0.001, 0.0005]), two,
+                      unit(rng.normal(size=two.shape)), 0.01),
+    }
+
+
 def small_inputs(np, ctt, poolgrid, rungrid, tgt, tn, src, T_true, crit,
                  pt2pl):
     """Each path on the card against the same call on the CPU (the plain
     versions): pose within 1e-4, fitness within 1e-3, correspondences
-    >= 99.9% equal."""
+    >= 99.9% equal, fitness >= 0.98 (the hash-grid case is held to the
+    CPU path alone: its 32-point buckets drop most candidates there, in
+    the reference as well)."""
     reg = ctt.registration
     pt2pt = reg.TransformationEstimationPointToPoint()
     sheet_src, sheet = _surface_pair(np)
@@ -808,29 +1130,51 @@ def small_inputs(np, ctt, poolgrid, rungrid, tgt, tn, src, T_true, crit,
         raise AssertionError("the 30k cloud does not take the fallback")
     fr_src, fr_tgt, fr_sigma, _ = _filterreg_pair(np, 40000, seed=3)
     few = reg.ICPConvergenceCriteria(REL_TOL, REL_TOL, 8)
-    cases = (
-        ("pooled volume", "icp", src[:m], tgt[:m], tn[:m], pt2pl, crit),
-        ("pooled surface", "icp", sheet_src, sheet, None, pt2pt, crit),
-        ("brute-force ICP", "icp", src[:15000], tgt[:15000], tn[:15000],
-         pt2pl, crit),
-        ("evaluate grid", "evaluate", src[:m], tgt[:m], None, None, None),
-        ("evaluate brute force", "evaluate", src[:15000], tgt[:15000], None,
-         None, None),
-        ("run-grid fallback", "icp", s_fb, t_fb, n_fb, pt2pl, few),
-        ("grid FilterReg", "filterreg", fr_src, fr_tgt, None, None, None),
-    )
-    for case, kind, s_np, t_np, n_np, est_obj, cr in cases:
+    # targets every grid plan rejects (all points in a 0.15 cube): 21k
+    # take the brute-force fallback, 250k the hash grid
+    t_br, _, s_br, _ = _headline_clouds(np, 21000, side=0.15, seed=7)
+    t_hg, _, s_hg, _ = _headline_clouds(np, 250000, side=0.15, seed=8)
+    cases = [
+        dict(case="pooled volume", kind="icp", s=src[:m], t=tgt[:m],
+             n=tn[:m], est=pt2pl, cr=crit),
+        dict(case="pooled surface", kind="icp", s=sheet_src, t=sheet,
+             est=pt2pt, cr=crit),
+        dict(case="brute-force ICP", kind="icp", s=src[:15000],
+             t=tgt[:15000], n=tn[:15000], est=pt2pl, cr=crit),
+        dict(case="evaluate grid", kind="evaluate", s=src[:m], t=tgt[:m]),
+        dict(case="evaluate brute force", kind="evaluate", s=src[:15000],
+             t=tgt[:15000]),
+        dict(case="run-grid fallback", kind="icp", s=s_fb, t=t_fb, n=n_fb,
+             est=pt2pl, cr=few),
+        dict(case="grid FilterReg", kind="filterreg", s=fr_src, t=fr_tgt),
+        dict(case="brute-force fallback", kind="icp", s=s_br, t=t_br,
+             est=pt2pt, cr=few),
+        dict(case="hash grid", kind="icp", s=s_hg, t=t_hg, est=pt2pt,
+             cr=reg.ICPConvergenceCriteria(REL_TOL, REL_TOL, 3),
+             own_fit=False),
+    ]
+    for name, (s_np, t_np, n_np, r) in _branch_pairs(np).items():
+        cols = _color_field(np, t_np)
+        cases += [
+            dict(case=f"Colored ICP, {name}", kind="icp", s=s_np, t=t_np,
+                 n=n_np, cols=cols, r=r,
+                 est=reg.TransformationEstimationForColoredICP(), cr=crit),
+            dict(case=f"GICP, {name}", kind="icp", s=s_np, t=t_np, r=r,
+                 est=reg.TransformationEstimationForGeneralizedICP(),
+                 cr=crit)]
+    for cs in cases:
         out = {}
+        r = cs.get("r", RADIUS)
         for name in ("cuda", "cpu"):
-            s_pc = ctt.geometry.PointCloud(s_np, device=name)
-            t_pc = ctt.geometry.PointCloud(t_np, device=name)
-            t_pc.normals = n_np
-            if kind == "icp":
+            s_pc = ctt.geometry.PointCloud(cs["s"], device=name)
+            t_pc = ctt.geometry.PointCloud(cs["t"], device=name)
+            t_pc.normals = cs.get("n")
+            s_pc.colors = t_pc.colors = cs.get("cols")
+            if cs["kind"] == "icp":
                 out[name] = reg.registration_icp(
-                    s_pc, t_pc, RADIUS, estimation=est_obj, criteria=cr)
-            elif kind == "evaluate":
-                out[name] = reg.evaluate_registration(s_pc, t_pc, RADIUS,
-                                                      T_true)
+                    s_pc, t_pc, r, estimation=cs["est"], criteria=cs["cr"])
+            elif cs["kind"] == "evaluate":
+                out[name] = reg.evaluate_registration(s_pc, t_pc, r, T_true)
             else:
                 out[name] = reg.registration_filterreg(
                     s_pc, t_pc, option=reg.FilterRegOption(
@@ -838,7 +1182,7 @@ def small_inputs(np, ctt, poolgrid, rungrid, tgt, tn, src, T_true, crit,
                         max_iteration=5))
         a, b = out["cuda"], out["cpu"]
         d_pose = float(np.abs(a.transformation - b.transformation).max())
-        if kind == "filterreg":
+        if cs["kind"] == "filterreg":
             fit_gap, agree, fit = 0.0, 1.0, 1.0
             detail = (f"likelihood {a.likelihood:.6e} vs "
                       f"{b.likelihood:.6e}")
@@ -846,15 +1190,15 @@ def small_inputs(np, ctt, poolgrid, rungrid, tgt, tn, src, T_true, crit,
             fit_gap = abs(a.fitness - b.fitness)
             agree = _corres_agreement(np, a.correspondence_set,
                                       b.correspondence_set)
-            fit = a.fitness
+            fit = a.fitness if cs.get("own_fit", True) else 1.0
             detail = (f"fitness {a.fitness:.6f} vs {b.fitness:.6f}, "
                       f"correspondences agree on {agree:.6f}")
-        print(f"small input ({case}, {len(s_np)} points): cuda vs cpu pose "
-              f"gap {d_pose:.3e}, {detail}")
+        print(f"small input ({cs['case']}, {len(cs['s'])} points): cuda vs "
+              f"cpu pose gap {d_pose:.3e}, {detail}")
         if d_pose > 1e-4 or fit_gap > 1e-3 or agree < AGREE_MIN \
                 or fit < 0.98:
             raise AssertionError(f"card and CPU paths disagree on the "
-                                 f"{case} input")
+                                 f"{cs['case']} input")
 
 
 def profile(torch, what, fn, loop_s):

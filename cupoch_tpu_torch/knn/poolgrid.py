@@ -501,24 +501,31 @@ def bin_queries_pool(points, bin_T, origin, cell_size,
 # per pass
 # ---------------------------------------------------------------------------
 
-def make_params(T, r2, grid: PoolGrid):
+def make_params(T, r2, grid: PoolGrid, extra0=0.0, extra1=0.0):
     """[NPARAMS] f32 on the grid's device: R row-major (0-8), t (9-11),
-    r^2 (12), key offset OFF (13), zero after (the JAX layout's
-    Colored/GICP extras at 17-18 come with those estimators)."""
+    r^2 (12), key offset OFF (13), the estimator's extras (17-18: Colored
+    ICP's sqrt(lambda_geometric) and sqrt(lambda_photometric)), zero
+    elsewhere."""
     dev = grid.table.device
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32).to(dev).reshape(1)
+
     T = torch.as_tensor(T, dtype=torch.float32).to(dev)
-    r2 = torch.as_tensor(r2, dtype=torch.float32).to(dev).reshape(1)
-    head = torch.cat([T[:3, :3].reshape(-1), T[:3, 3], r2,
-                      grid.off.reshape(1)])
+    head = torch.cat([T[:3, :3].reshape(-1), T[:3, 3], f32(r2),
+                      grid.off.reshape(1),
+                      torch.zeros(3, dtype=torch.float32, device=dev),
+                      f32(extra0), f32(extra1)])
     return torch.cat([head, torch.zeros(NPARAMS - head.shape[0],
                                         dtype=torch.float32, device=dev)])
 
 
 def _gn_terms_world(est: int, f, tx, ty, tz, px, py, pz, q_extra,
-                    R9, ok, d2c):
+                    R9, slg, slp, ok, d2c):
     """GN sum terms from world-frame quantities. f: gathered field
-    columns beyond coordinates; q_extra: pooled query extra channels.
-    Slot layout as `rungrid.N_SUMS`."""
+    columns beyond coordinates; q_extra: pooled query extra channels;
+    slg, slp: Colored ICP's square-rooted weights. Slot layout as
+    `rungrid.N_SUMS`."""
     w = ok.float()
     if est in (EST_NONE, EST_PT2PT):
         terms = [w, w * tx, w * ty, w * tz, w * px, w * py, w * pz]
@@ -527,6 +534,9 @@ def _gn_terms_world(est: int, f, tx, ty, tz, px, py, pz, q_extra,
                 terms.append(w * s * d)
         terms.append(d2c)
         return terms
+    if est in (EST_COLORED, EST_GICP):
+        return _gn_terms_ext(est, f, tx, ty, tz, tx - px, ty - py, tz - pz,
+                             q_extra, R9, slg, slp, ok, d2c)
     if est == EST_PT2PL:
         nx, ny, nz, dd = f[0], f[1], f[2], f[3]
         r = nx * tx + ny * ty + nz * tz - dd
@@ -544,9 +554,7 @@ def _gn_terms_world(est: int, f, tx, ty, tz, px, py, pz, q_extra,
         j = (uy * mz - uz * my, uz * mx - ux * mz, ux * my - uy * mx,
              mx, my, mz)
     else:
-        raise NotImplementedError(
-            f"pool epilogue for estimator code {est} (ColoredICP / "
-            f"GeneralizedICP) is not ported yet")
+        raise ValueError(f"unknown estimator code {est}")
     terms = []
     for i in range(6):
         for k in range(i, 6):
@@ -555,6 +563,101 @@ def _gn_terms_world(est: int, f, tx, ty, tz, px, py, pz, q_extra,
         terms.append(w * j[i] * r)                 # 6 JTr
     terms.append(w)                                # 27: count
     terms.append(d2c)                              # 28: err
+    return terms
+
+
+def _gn_terms_ext(est: int, f, tx, ty, tz, dx, dy, dz, q_extra, R9, slg,
+                  slp, ok, d2c):
+    """GN sum terms of Colored ICP and GICP, term for term as the JAX
+    package's epilogue computes them. d* = q - p is the world residual;
+    q_extra holds the source intensity (Colored) or the upper triangle
+    of the source covariance (GICP), which R9 turns by the pose. GICP's
+    sqrtm whitening is folded in: (WJ)^T (WJ) = J^T M^-1 J."""
+    w = ok.float()
+    if est == EST_COLORED:
+        nx, ny, nz = f[0], f[1], f[2]
+        it = f[3]
+        gx, gy, gz = f[4], f[5], f[6]
+        i_s = q_extra[0]
+        dn = nx * dx + ny * dy + nz * dz
+        r_g = slg * dn
+        jg = (slg * (ty * nz - tz * ny), slg * (tz * nx - tx * nz),
+              slg * (tx * ny - ty * nx), slg * nx, slg * ny, slg * nz)
+        gn = gx * nx + gy * ny + gz * nz
+        ex_, ey_, ez_ = (-(gx - gn * nx), -(gy - gn * ny),
+                         -(gz - gn * nz))          # ditM
+        vpx = dx - dn * nx
+        vpy = dy - dn * ny
+        vpz = dz - dn * nz
+        is0 = gx * vpx + gy * vpy + gz * vpz + it
+        r_p = slp * (i_s - is0)
+        jp = (slp * (ty * ez_ - tz * ey_), slp * (tz * ex_ - tx * ez_),
+              slp * (tx * ey_ - ty * ex_), slp * ex_, slp * ey_,
+              slp * ez_)
+        terms = []
+        for i in range(6):
+            for k in range(i, 6):
+                terms.append(w * (jg[i] * jg[k] + jp[i] * jp[k]))
+        for i in range(6):
+            terms.append(w * (jg[i] * r_g + jp[i] * r_p))
+        terms.append(w)
+        terms.append(d2c)
+        return terms
+    ct = f[:6]                # target covariance, upper triangle
+    a, b, c, d, e, g = q_extra[:6]
+    R00, R01, R02, R10, R11, R12, R20, R21, R22 = R9
+    # B = R Cs (rows of R times the symmetric Cs)
+    B00 = R00 * a + R01 * b + R02 * c
+    B01 = R00 * b + R01 * d + R02 * e
+    B02 = R00 * c + R01 * e + R02 * g
+    B10 = R10 * a + R11 * b + R12 * c
+    B11 = R10 * b + R11 * d + R12 * e
+    B12 = R10 * c + R11 * e + R12 * g
+    B20 = R20 * a + R21 * b + R22 * c
+    B21 = R20 * b + R21 * d + R22 * e
+    B22 = R20 * c + R21 * e + R22 * g
+    # M = Ct + B R^T (symmetric)
+    m00 = ct[0] + B00 * R00 + B01 * R01 + B02 * R02
+    m01 = ct[1] + B00 * R10 + B01 * R11 + B02 * R12
+    m02 = ct[2] + B00 * R20 + B01 * R21 + B02 * R22
+    m11 = ct[3] + B10 * R10 + B11 * R11 + B12 * R12
+    m12 = ct[4] + B10 * R20 + B11 * R21 + B12 * R22
+    m22 = ct[5] + B20 * R20 + B21 * R21 + B22 * R22
+    # A = M^-1 by the adjugate (M is PSD and epsilon-regularised)
+    a00 = m11 * m22 - m12 * m12
+    a01 = m02 * m12 - m01 * m22
+    a02 = m01 * m12 - m02 * m11
+    a11 = m00 * m22 - m02 * m02
+    a12 = m01 * m02 - m00 * m12
+    a22 = m00 * m11 - m01 * m01
+    det = m00 * a00 + m01 * a01 + m02 * a02
+    inv = 1.0 / det.clamp(min=1e-30)
+    a00, a01, a02 = a00 * inv, a01 * inv, a02 * inv
+    a11, a12, a22 = a11 * inv, a12 * inv, a22 * inv
+    # J0 columns: u0 = (0, -z, y), u1 = (z, 0, -x), u2 = (-y, x, 0),
+    # u3..u5 = the unit axes
+    zero = torch.zeros_like(tx)
+    ucols = ((zero, -tz, ty), (tz, zero, -tx), (-ty, tx, zero),
+             (1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (0.0, 0.0, 1.0))
+
+    def Au(u):
+        ux, uy, uz = u
+        return (a00 * ux + a01 * uy + a02 * uz,
+                a01 * ux + a11 * uy + a12 * uz,
+                a02 * ux + a12 * uy + a22 * uz)
+
+    Aus = [Au(u) for u in ucols]
+    terms = []
+    for i in range(6):
+        for k in range(i, 6):
+            ux, uy, uz = ucols[i]
+            vx, vy, vz = Aus[k]
+            terms.append(w * (ux * vx + uy * vy + uz * vz))
+    for i in range(6):
+        vx, vy, vz = Aus[i]
+        terms.append(w * (dx * vx + dy * vy + dz * vz))
+    terms.append(w)
+    terms.append(d2c)
     return terms
 
 
@@ -610,7 +713,7 @@ def _epilogue(grid: PoolGrid, qpool, slot, params, est: int,
     fcols = [f[..., 3 + k] for k in range(f.shape[-1] - 3)]
     q_extra = [qpool[:, 7 + k] for k in range(n_query_extra(est))]
     terms = _gn_terms_world(est, fcols, tx, ty, tz, px, py, pz, q_extra,
-                            tuple(R), ok, d2c)
+                            tuple(R), params[17], params[18], ok, d2c)
     sums = torch.stack(terms).sum((1, 2))
     return torch.cat([sums, sums.new_zeros(N_SUMS - sums.shape[0])])
 

@@ -18,6 +18,7 @@ pass in `rungrid_fused.py` (kernel 2) or the Gaussian-moment pass in
 """
 from __future__ import annotations
 
+import hashlib
 from typing import Optional, Tuple
 
 import numpy as np
@@ -471,15 +472,17 @@ def bin_queries(points, bin_positions, origin, cell_size,
 
 
 def scatter_to_source(qidx, values, n: int, fill):
-    """[n] per-source values from the binned [rows, qcap] `values`, with
+    """[n, ...] per-source values from the binned `values` (qidx's
+    [rows, qcap] slots, flat or not, then any trailing dims), with
     `qidx` the source index of each binned slot (-1 empty); sources no
     slot holds get `fill`."""
     flat_q = qidx.reshape(-1)
-    okq = flat_q >= 0
-    slot = torch.where(okq, flat_q, n).long()   # n: dump slot, sliced off
-    out = torch.full((n + 1,), fill, dtype=values.dtype,
+    trail = tuple(values.shape[qidx.dim():])
+    okq = (flat_q >= 0).reshape((-1,) + (1,) * len(trail))
+    slot = torch.where(flat_q >= 0, flat_q, n).long()  # n: dump, sliced off
+    out = torch.full((n + 1,) + trail, fill, dtype=values.dtype,
                      device=values.device)
-    out[slot] = torch.where(okq, values.reshape(-1), fill)
+    out[slot] = torch.where(okq, values.reshape((-1,) + trail), fill)
     return out[:n]
 
 
@@ -554,3 +557,175 @@ def _gn_terms(est: int, fetched, tx, ty, tz, ex, ey, ez,
 def _unpack16(word, lo, scale, high: bool):
     u = (word >> 16) & 0xFFFF if high else word & 0xFFFF
     return u.float() * scale + lo
+
+
+# ---------------------------------------------------------------------------
+# k-NN over the run grid (cupoch's [Q, max_nn] contract: -1 / inf fill).
+# None of this is a TPU kernel in the JAX package: it stays plain torch.
+# ---------------------------------------------------------------------------
+
+# bytes of one [cells, qcap, KC] f32 distance block `knn_rungrid` holds
+_KNN_CHUNK_BYTES = 1 << 28
+
+
+def knn_rungrid(grid: RunGrid, queries, k: int, qcap: int, radius,
+                query_mask=None):
+    """k nearest neighbours within `radius` (+inf: bounded only by the
+    grid's coverage): (idx [Q, k] int32 sorted by distance, -1 fill;
+    d2 [Q, k], +inf fill). k = 1 is a masked argmin that keeps the
+    first lane of a tie; k > 1 takes `torch.topk` over the lanes, whose
+    order among equal distances may differ from the JAX package's.
+
+    Exact when the k-th neighbour lies in the 27-cell neighbourhood and
+    no cell overflowed its cap; `knn_search_grid` sizes the grid so."""
+    Q = queries.shape[0]
+    KC = grid.kc
+    if k > KC:
+        idx, d2 = knn_rungrid(grid, queries, KC, qcap, radius,
+                              query_mask=query_mask)
+        return (torch.nn.functional.pad(idx, (0, k - KC),
+                                        value=INVALID_INDEX),
+                torch.nn.functional.pad(d2, (0, k - KC),
+                                        value=float("inf")))
+    dev = queries.device
+    qsoa, qidx = bin_queries(queries, queries, grid.origin, grid.cell_size,
+                             grid.dims, qcap, mask=query_mask)
+    cp = qsoa.shape[0]
+    r2 = torch.as_tensor(radius, dtype=torch.float32).to(dev) ** 2
+    centers = cell_centers(grid.dims, grid.origin, grid.cell_size, cp)
+    d2_out = torch.empty((cp, qcap, k), dtype=torch.float32, device=dev)
+    idx_out = torch.empty((cp, qcap, k), dtype=torch.int32, device=dev)
+    step = max(1, _KNN_CHUNK_BYTES // (qcap * KC * 4))
+    for c0 in range(0, cp, step):
+        sl = slice(c0, c0 + step)
+        c, ni, qi = grid.cand[sl], grid.negidx[sl], qidx[sl]
+        e = qsoa[sl, 0:3] - centers[sl, :, None]
+        qn = (e * e).sum(1)
+        d2a = c[:, 3, None, :] + e[:, 0, :, None] * c[:, 0, None, :]
+        d2a = d2a + e[:, 1, :, None] * c[:, 1, None, :]
+        d2a = d2a + e[:, 2, :, None] * c[:, 2, None, :]
+        d2a = d2a + qn[:, :, None]                       # [n, qcap, KC]
+        valid = (qi[:, :, None] >= 0) & (d2a <= r2) \
+            & (ni[:, None, :] <= 0.0)
+        dm = torch.where(valid, d2a, float("inf"))
+        del d2a, valid
+        if k == 1:
+            dk, lanes = dm.min(-1, keepdim=True)
+        else:
+            dk, lanes = torch.topk(dm, k, dim=-1, largest=False,
+                                   sorted=True)
+        del dm
+        fik = torch.gather(ni[:, None, :].expand(-1, qcap, -1), -1, lanes)
+        ok = torch.isfinite(dk)
+        d2_out[sl] = torch.where(ok, dk.clamp(min=0.0), float("inf"))
+        idx_out[sl] = torch.where(ok, -fik, float(INVALID_INDEX)) \
+            .to(torch.int32)
+    return (scatter_to_source(qidx, idx_out, Q, INVALID_INDEX),
+            scatter_to_source(qidx, d2_out, Q, float("inf")))
+
+
+_GRID_CACHE_MAX = 4
+_grid_cache: dict = {}  # content key -> (grid, qcap, cell size)
+
+
+def _data_key(data_np, data_mask, device) -> tuple:
+    """Content key of a cloud for grid reuse: a hash of the WHOLE point
+    buffer and mask (the JAX package samples 64 rows, so a cloud edited
+    elsewhere reuses a stale grid there), with the shape and device."""
+    h = hashlib.blake2b(np.ascontiguousarray(data_np, np.float32).tobytes(),
+                        digest_size=16)
+    if data_mask is not None:
+        h.update(np.ascontiguousarray(data_mask, bool).tobytes())
+    return (data_np.shape, str(device), h.hexdigest())
+
+
+def clear_grid_cache():
+    _grid_cache.clear()
+
+
+def knn_search_grid(queries_np, data_np, k: int,
+                    radius: Optional[float] = None, data_mask=None,
+                    max_retries: int = 3, queries_dev=None, data_dev=None):
+    """Exact grid k-NN with density-based cell sizing and a growth
+    retry: the cell is sized so about 2k points fall in a ball of its
+    radius, every query must find k in-coverage neighbours (or, with a
+    `radius`, the cell must cover it), and the grid regrows 1.7x when
+    not. A small content-keyed cache reuses a built grid on the same
+    cloud; its result is accepted only under the same test. Returns
+    (idx [Q, k] int32, d2 [Q, k]) on the device of `data_dev` (the CPU
+    when not given), or None when no dense grid suits the cloud (the
+    caller falls back).
+
+    The plan and the density see only the rows `data_mask` keeps. The
+    JAX package plans over every row, so the zero rows that pad a cloud
+    to its bucket size pile into one cell at the origin, push the cap
+    past its limit and send every padded search above 20k points (all
+    of `estimate_normals`) to brute force."""
+    data_np = np.asarray(data_np)
+    queries_np = np.asarray(queries_np)
+    n = data_np.shape[0]
+    keep = np.isfinite(data_np).all(-1)
+    if data_mask is not None:
+        keep &= torch.as_tensor(data_mask).cpu().numpy().astype(bool)
+    if not keep.any():
+        return None
+    kept = data_np[keep]
+    r_cap = float(radius) if radius is not None else np.inf
+    kneed = min(k, kept.shape[0])
+    data_j = data_dev if data_dev is not None \
+        else torch.as_tensor(data_np, dtype=torch.float32)
+    dev = data_j.device
+    q_j = queries_dev if queries_dev is not None \
+        else torch.as_tensor(queries_np, dtype=torch.float32, device=dev)
+    mask_j = None
+    if data_mask is not None:
+        mask_j = torch.as_tensor(data_mask).to(dev)
+        data_mask = mask_j.cpu().numpy()
+
+    def found(idx):
+        return (idx >= 0).sum(-1)
+
+    def accept(idx, r_eff):
+        if radius is not None and r_eff >= r_cap:
+            # hybrid semantics: short lists are legal once the cell
+            # covers the whole search radius
+            return True
+        return bool((found(idx) >= kneed).all())
+
+    key = _data_key(data_np, data_mask, dev)
+    cached = _grid_cache.get(key)
+    if cached is not None:
+        grid, qcap, cell = cached
+        idx, d2 = knn_rungrid(grid, q_j, k, qcap, np.float32(min(cell, r_cap)))
+        # the cached qcap was sized for another query set: a query its
+        # pools dropped (an all-empty row) forces a fresh build
+        if bool((found(idx) >= min(kneed, 1)).all()) and accept(idx, cell):
+            return idx, d2
+
+    lo, hi = kept.min(0), kept.max(0)
+    vol = float(np.prod(np.maximum(hi - lo, 1e-9)))
+    density = max(kept.shape[0] / max(vol, 1e-12), 1e-12)
+    # radius of a ball expected to hold about 2k points
+    r_est = (2.0 * max(k, 1) / (density * 4.19)) ** (1.0 / 3.0)
+    if radius is not None:
+        r_est = min(r_est, float(radius))
+    attrs0 = data_j.new_zeros((n, 0))
+    for _ in range(max_retries):
+        plan = plan_rungrid(kept, r_est, margin=0.0,
+                            query_points=queries_np, cap_percentile=100.0,
+                            cap_limit=256)
+        if plan is None:
+            return None
+        grid = make_rungrid(data_j, attrs0, plan["origin"],
+                            plan["cell_size"], plan["dims"], plan["cap"],
+                            mask=mask_j)
+        idx, d2 = knn_rungrid(grid, q_j, k, plan["qcap"],
+                              np.float32(min(r_est, r_cap)))
+        if accept(idx, r_est):
+            if len(_grid_cache) >= _GRID_CACHE_MAX:
+                _grid_cache.pop(next(iter(_grid_cache)))
+            _grid_cache[key] = (grid, plan["qcap"],
+                                float(plan["cell_size"]))
+            return idx, d2
+        r_est *= 1.7
+    return None

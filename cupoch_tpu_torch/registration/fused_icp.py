@@ -1,6 +1,7 @@
 """Grid ICP loops (cupoch RegistrationICP, registration.cu): over the
-pooled grid (`icp_core_pool`) and over the run grid
-(`icp_core_rungrid`, the fallback when the pool plan is rejected).
+pooled grid (`icp_core_pool`, every estimator) and over the run grid
+(`icp_core_rungrid`, the PT2PT/PT2PL/SYM fallback when the pool plan is
+rejected).
 
 Each iteration is one pass over the grid: on the pooled grid the slot
 kernel picks correspondences and the epilogue reduces the Gauss-Newton
@@ -129,14 +130,17 @@ def icp_core_pool(src, src_mask, src_aux, grid: poolgrid.PoolGrid,
                   init_T, max_dist, rebin_margin, relative_fitness,
                   relative_rmse, qp: int,
                   est_type: TransformationEstimationType,
-                  max_iteration: int):
+                  max_iteration: int, extra_params=(0.0, 0.0)):
     """Pooled-grid ICP loop on the device of `src` and `grid`.
 
     src [Np, 3] padded source points, src_mask [Np], src_aux [Np, E]
-    estimator extras (SYM: source normals). Returns (T [4, 4] f32 on
-    the host, idx [Np] int32 on the device (-1 none), fitness, rmse
-    (0-d tensors on the device), iterations run, n_dropped_queries
-    (0-d tensor, the max over every binning))."""
+    estimator extras pooled with the queries (SYM: source normals;
+    Colored: source intensity; GICP: the source covariance's upper
+    triangle), extra_params Colored ICP's (sqrt lambda_geometric, sqrt
+    lambda_photometric). Returns (T [4, 4] f32 on the host, idx [Np]
+    int32 on the device (-1 none), fitness, rmse (0-d tensors on the
+    device), iterations run, n_dropped_queries (0-d tensor, the max
+    over every binning))."""
     Np = src.shape[0]
     est = _est_code(est_type)
     n_src = src_mask.sum().to(torch.float32).clamp(min=1.0).to(_HOST)
@@ -163,7 +167,7 @@ def icp_core_pool(src, src_mask, src_aux, grid: poolgrid.PoolGrid,
             qpool, qidx, nq2 = rebin(T)
             T_bin = T
             nq = torch.maximum(nq, nq2)
-        params = poolgrid.make_params(T, r2, grid)
+        params = poolgrid.make_params(T, r2, grid, *extra_params)
         sums = poolgrid.fused_pool_query(grid, qpool, params, est,
                                          False).to(_HOST)
         fit2, rmse2 = _stats_from_sums(est_type, sums, n_src)

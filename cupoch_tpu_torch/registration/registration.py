@@ -1,13 +1,18 @@
 """ICP registration entry points (cupoch RegistrationICP and
 EvaluateRegistration, registration.cu).
 
-`registration_icp` takes, for PointToPoint, PointToPlane and
-SymmetricMethod: the pooled grid for targets of more than
-`_GRID_THRESHOLD` points; the run grid when the pool plan is rejected;
-brute-force 1-NN in the generic loop (`_icp_core`) for smaller targets.
-Still to port, and raising NotImplementedError naming the branch:
-Colored and Generalized ICP, and large targets that both grid plans
-reject (the JAX package's roll, cell and hash grids).
+`registration_icp` takes, for every estimator, the branch the JAX
+package takes:
+- targets of at most `_GRID_THRESHOLD` points: brute-force 1-NN in the
+  generic loop (`_icp_core`);
+- larger targets: the pooled grid when its plan is accepted (all five
+  estimators); for PT2PT, PT2PL and SYM the run grid when only that
+  plan is accepted;
+- else the generic loop over the dense roll grid, the active-cell grid
+  (both reduced by kernel 4), brute force up to `_BRUTE_FALLBACK_MAX`
+  target points, or the hash grid (`_choose_corres`).
+Colored ICP and GICP precompute their estimator inputs first: the
+target's colour gradient, or both clouds' covariances.
 `evaluate_registration` makes one correspondence pass: over the run
 grid above the threshold when its plan is accepted, else brute force.
 """
@@ -18,7 +23,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..knn import bruteforce, poolgrid, rungrid, rungrid_fused
+from ..knn import (bruteforce, cellgrid, gridhash, poolgrid, rollgrid,
+                   rungrid, rungrid_fused)
 from ..utility import console
 from ..utility.shape import bucket_size, pad_axis0, valid_mask
 from ..utility.transforms import transform_points
@@ -27,11 +33,14 @@ from .estimation import (
     TransformationEstimation,
     TransformationEstimationPointToPoint,
     TransformationEstimationType,
+    colored_system,
+    gicp_system,
     normal_system,
     solve_normal_system,
 )
 
 _HOST = torch.device("cpu")
+_ET = TransformationEstimationType
 
 
 class ICPConvergenceCriteria:
@@ -68,9 +77,13 @@ class RegistrationResult:
 
 
 _GRID_THRESHOLD = 20000  # below this, brute-force 1-NN is faster than a grid
-_PORTED_ESTIMATORS = (TransformationEstimationType.PointToPoint,
-                    TransformationEstimationType.PointToPlane,
-                    TransformationEstimationType.SymmetricMethod)
+# When every grid plan rejects a target (a surface scan with a search
+# radius that piles it into a few cells), tiled brute force stays exact
+# and affordable up to this many target points; the hash grid, whose
+# buckets keep 32 points each, would drop most candidates there.
+_BRUTE_FALLBACK_MAX = 200_000
+_RUN_GRID_ESTIMATORS = (_ET.PointToPoint, _ET.PointToPlane,
+                        _ET.SymmetricMethod)
 
 
 def _prep(pcd, need_normals: bool):
@@ -96,13 +109,19 @@ def _make_result(T, idx, fit, rmse, n_src):
     return res
 
 
-def _correspondence_fn(tgt, tgt_mask, max_dist, use_grid):
+def _correspondence_fn(tgt, tgt_mask, max_dist, use_grid, grid=None):
     """1-NN within max_dist for transformed source points: (idx, d2),
-    -1 / inf where none. Only the brute-force branch is ported."""
+    -1 / inf where none. `use_grid`: "roll" or "cell" (over `grid`),
+    True (a hash grid built here) or False (brute force)."""
+    if use_grid == "roll":
+        return lambda src_t: rollgrid.query_nn_rollgrid(grid, src_t,
+                                                        max_dist)
+    if use_grid == "cell":
+        return lambda src_t: cellgrid.query_nn_cellgrid(grid, src_t,
+                                                        max_dist)
     if use_grid:
-        raise NotImplementedError(
-            f"the {use_grid if isinstance(use_grid, str) else 'hash'} grid "
-            f"correspondence branch is not ported yet")
+        hgrid = gridhash.build_grid(tgt, max_dist, mask=tgt_mask)
+        return lambda src_t: gridhash.query_nn(hgrid, src_t, max_dist)
     r2 = torch.tensor(max_dist, dtype=torch.float32) ** 2
 
     def corres(src_t):
@@ -116,18 +135,19 @@ def _correspondence_fn(tgt, tgt_mask, max_dist, use_grid):
 def _icp_core(src, src_mask, src_normals, tgt, tgt_mask, tgt_normals,
               init_T, max_dist, relative_fitness, relative_rmse,
               est_type: TransformationEstimationType, max_iteration: int,
-              use_grid=False):
+              use_grid=False, aux=None, grid=None):
     """The generic ICP loop on the device of the clouds: correspondence
     (`_correspondence_fn`), the estimator's normal system, a host solve
     and the pose composition, then the convergence test. Each iteration
     reads the system and the fitness statistics in one device-to-host
-    copy. Returns (T [4, 4] f32 on the host, idx [Np] int32 on the
-    device, fitness, rmse (host 0-d tensors), iterations run)."""
+    copy. `aux` carries Colored ICP's intensities, target gradient and
+    square-rooted weights, or GICP's padded covariances. Returns (T
+    [4, 4] f32 on the host, idx [Np] int32 on the device, fitness, rmse
+    (host 0-d tensors), iterations run)."""
     dev = src.device
     n_src = src_mask.sum().to(torch.float32).clamp(min=1.0).to(_HOST)
-    corres_fn = _correspondence_fn(tgt, tgt_mask, max_dist, use_grid)
+    corres_fn = _correspondence_fn(tgt, tgt_mask, max_dist, use_grid, grid)
     M = tgt.shape[0]
-    sym = est_type == TransformationEstimationType.SymmetricMethod
     rel_fit = torch.tensor(relative_fitness, dtype=torch.float32)
     rel_rmse = torch.tensor(relative_rmse, dtype=torch.float32)
 
@@ -141,10 +161,24 @@ def _icp_core(src, src_mask, src_normals, tgt, tgt_mask, tgt_normals,
         return src_t, idx, ok, head
 
     def system(T, src_t, idx, ok):
+        # the source's normals and covariances turn with the pose; the
+        # reference transforms the whole cloud each iteration instead
         ti = idx.clamp(0, M - 1).long()
-        src_n = src_normals @ T[:3, :3].to(dev).T if sym else None
+        w = ok.to(torch.float32)
+        R = T[:3, :3].to(dev)
+        if est_type == _ET.ColoredICP:
+            return colored_system(
+                src_t, tgt[ti], tgt_normals[ti], aux["src_intensity"],
+                aux["tgt_intensity"][ti], aux["tgt_color_gradient"][ti], w,
+                aux["sqrt_lambda_geometric"], aux["sqrt_lambda_photometric"])
+        if est_type == _ET.GeneralizedICP:
+            src_cov_t = torch.einsum("ij,njk,lk->nil", R, aux["src_cov"], R)
+            return gicp_system(src_t, src_cov_t, tgt[ti],
+                               aux["tgt_cov"][ti], w)
+        src_n = src_normals @ R.T if est_type == _ET.SymmetricMethod \
+            else None
         return normal_system(est_type, src_t, tgt[ti], tgt_normals[ti],
-                             src_n, ok.to(torch.float32))
+                             src_n, w)
 
     T = torch.as_tensor(init_T, dtype=torch.float32).to(_HOST)
     src_t, idx, ok, head = eval_state(T)
@@ -171,6 +205,78 @@ def _icp_core(src, src_mask, src_normals, tgt, tgt_mask, tgt_normals,
     return T, idx, fit, rmse, it
 
 
+def _choose_corres(target, tgt_padded, tgt_mask, max_dist):
+    """The generic loop's correspondence backend for `target`: brute
+    force for small targets, the dense roll grid for compact volumes,
+    the active-cell grid for sparse (surface) clouds, brute force up to
+    `_BRUTE_FALLBACK_MAX` points when both plans reject the target, the
+    hash grid beyond. Returns (use_grid, grid)."""
+    n = len(target)
+    if n <= _GRID_THRESHOLD:
+        return False, None
+    pts_np = target.points.cpu().numpy()
+    plan = rollgrid.plan_rollgrid(pts_np, max_dist)
+    if plan is not None:
+        return "roll", rollgrid.build_rollgrid(
+            tgt_padded, plan["origin"], plan["cell_size"], plan["dims"],
+            plan["cap"], mask=tgt_mask)
+    cplan = cellgrid.plan_cellgrid(pts_np, max_dist)
+    if cplan is not None:
+        return "cell", cellgrid.build_cellgrid(
+            tgt_padded, cplan["origin"], cplan["cell_size"],
+            cplan["active"], cplan["dims"], cplan["cap"],
+            cplan["n_active"], mask=tgt_mask)
+    if n <= _BRUTE_FALLBACK_MAX:
+        return False, None
+    return True, None
+
+
+def _pad_cov(cov, cap):
+    """Covariances padded to `cap` rows with identity: inv(Ct + Cs) must
+    stay finite on padded rows (a zero weight times nan is nan)."""
+    n = cov.shape[0]
+    padded = pad_axis0(cov, cap)
+    pad_rows = (torch.arange(cap, device=cov.device) >= n)[:, None, None]
+    return padded + pad_rows * torch.eye(3, dtype=cov.dtype,
+                                         device=cov.device)
+
+
+def _estimator_aux(est_type, estimation, source, target, max_dist,
+                   cap_src, cap_tgt) -> dict:
+    """Colored ICP's and GICP's precomputed inputs (cupoch colored_icp.cu
+    InitializePointCloudForColoredICP, generalized_icp.cu
+    InitializePointCloudForGeneralizedICP), padded with the clouds."""
+    if est_type == _ET.ColoredICP:
+        from .colored_icp import compute_color_gradient, intensity
+
+        if not source.has_colors() or not target.has_colors():
+            console.log_error("ColoredICP requires colors on both clouds.")
+        grad = compute_color_gradient(target, max_dist * 2.0, 30)
+        lam = estimation.lambda_geometric
+
+        def f32_sqrt(x):
+            return float(torch.tensor(x, dtype=torch.float32) ** 0.5)
+
+        return {
+            "src_intensity": pad_axis0(intensity(source.colors), cap_src),
+            "tgt_intensity": pad_axis0(intensity(target.colors), cap_tgt),
+            "tgt_color_gradient": pad_axis0(grad, cap_tgt),
+            "sqrt_lambda_geometric": f32_sqrt(lam),
+            "sqrt_lambda_photometric": f32_sqrt(1.0 - lam),
+        }
+    if est_type == _ET.GeneralizedICP:
+        from .generalized_icp import initialize_cloud_for_gicp
+
+        eps = getattr(estimation, "epsilon", 1e-3)
+        return {
+            "src_cov": _pad_cov(initialize_cloud_for_gicp(source, eps),
+                                cap_src),
+            "tgt_cov": _pad_cov(initialize_cloud_for_gicp(target, eps),
+                                cap_tgt),
+        }
+    return {}
+
+
 def registration_icp(
     source,
     target,
@@ -185,52 +291,78 @@ def registration_icp(
     estimation = estimation or TransformationEstimationPointToPoint()
     criteria = criteria or ICPConvergenceCriteria()
     est_type = estimation.get_transformation_estimation_type()
-    if est_type not in _PORTED_ESTIMATORS:
-        raise NotImplementedError(
-            f"registration_icp: the {est_type.name} branch is not ported "
-            f"yet")
+    if est_type == _ET.Unspecified:
+        raise ValueError("registration_icp needs an estimator type")
     if source.points.device != target.points.device:
         raise ValueError("source and target must lie on one device")
-    need_tgt_normals = est_type in (
-        TransformationEstimationType.PointToPlane,
-        TransformationEstimationType.SymmetricMethod)
+    need_tgt_normals = est_type in (_ET.PointToPlane, _ET.SymmetricMethod,
+                                    _ET.ColoredICP)
     if need_tgt_normals and not target.has_normals():
         console.log_error(
             "TransformationEstimationPointToPlane and ColoredICP "
             "require pre-computed target normal vectors.")
-    if est_type == TransformationEstimationType.SymmetricMethod \
-            and not source.has_normals():
+    if est_type == _ET.SymmetricMethod and not source.has_normals():
         console.log_error("SymmetricMethod requires source normals.")
+    max_dist = max_correspondence_distance
     n_tgt = len(target)
     init_T = torch.eye(4, dtype=torch.float32) if init is None \
         else torch.as_tensor(np.asarray(init, np.float32))
     src, src_mask, src_normals = _prep(source, True)
     tgt, tgt_mask, tgt_normals = _prep(target, need_tgt_normals)
+    aux = _estimator_aux(est_type, estimation, source, target, max_dist,
+                         src.shape[0], tgt.shape[0])
 
-    if n_tgt <= _GRID_THRESHOLD:
+    def generic(use_grid, grid):
         T, idx, fit, rmse, it = _icp_core(
             src, src_mask, src_normals, tgt, tgt_mask, tgt_normals, init_T,
-            max_correspondence_distance, criteria.relative_fitness,
-            criteria.relative_rmse, est_type, criteria.max_iteration)
+            max_dist, criteria.relative_fitness, criteria.relative_rmse,
+            est_type, criteria.max_iteration, use_grid, aux=aux, grid=grid)
         console.log_debug("ICP finished after %s iterations", it)
         res = _make_result(T, idx, fit, rmse, len(source))
         res.iterations = it
         return res
 
+    if n_tgt <= _GRID_THRESHOLD:
+        return generic(False, None)
+
     src_np = source.points.cpu().numpy()
     initn = init_T.numpy()
     src_np_t = src_np @ initn[:3, :3].T + initn[:3, 3]
+    tgt_aux, src_aux, extra_params = None, src_normals, (0.0, 0.0)
+    if est_type == _ET.ColoredICP:
+        tgt_aux = {"intensity": aux["tgt_intensity"],
+                   "gradient": aux["tgt_color_gradient"]}
+        src_aux = aux["src_intensity"][:, None]
+        extra_params = (aux["sqrt_lambda_geometric"],
+                        aux["sqrt_lambda_photometric"])
+    elif est_type == _ET.GeneralizedICP:
+        tgt_aux = {"cov": aux["tgt_cov"]}
+        src_aux = fused_icp.cov_upper6(aux["src_cov"])
     attrs, est_code = fused_icp.make_target_attrs(
-        est_type, tgt, tgt_normals)
+        est_type, tgt, tgt_normals, tgt_aux)
     tgt_np = target.points.cpu().numpy()
-    pplan = poolgrid.plan_poolgrid(
-        tgt_np, max_correspondence_distance, query_points=src_np_t,
-        est=est_code)
-    if pplan is None:
-        return _registration_icp_rungrid(
-            source, src, src_mask, src_normals, tgt, tgt_mask, attrs,
-            est_code, src_np_t, tgt_np, init_T, max_correspondence_distance,
-            est_type, criteria)
+    pplan = poolgrid.plan_poolgrid(tgt_np, max_dist, query_points=src_np_t,
+                                   est=est_code)
+    if pplan is not None:
+        return _registration_icp_pool(
+            source, src, src_mask, src_aux, tgt, tgt_mask, attrs, est_code,
+            src_np_t, tgt_np, pplan, init_T, max_dist, est_type, criteria,
+            extra_params)
+    if est_type in _RUN_GRID_ESTIMATORS:
+        plan = rungrid.plan_rungrid(tgt_np, max_dist, query_points=src_np_t,
+                                    nch=attrs.shape[1])
+        if plan is not None:
+            return _registration_icp_rungrid(
+                source, src, src_mask, src_normals, tgt, tgt_mask, attrs,
+                est_code, plan, init_T, max_dist, est_type, criteria)
+    return generic(*_choose_corres(target, tgt, tgt_mask, max_dist))
+
+
+def _registration_icp_pool(source, src, src_mask, src_aux, tgt, tgt_mask,
+                           attrs, est_code, src_np_t, tgt_np, pplan, init_T,
+                           max_dist, est_type, criteria, extra_params):
+    """The pooled-grid branch of `registration_icp`, with one regrow of
+    the cell capacity when the planned cap drops too many targets."""
 
     def build(plan):
         return poolgrid.make_poolgrid(
@@ -240,24 +372,24 @@ def registration_icp(
 
     grid = build(pplan)
     nd_t = int(grid.n_dropped)
-    if nd_t > max(64, 0.002 * n_tgt):
+    if nd_t > max(64, 0.002 * tgt_np.shape[0]):
         # the drop-bounded cap lost a meaningful fraction of the target:
         # retry once at the occupancy maximum before accepting it
         console.log_warning(
             "pool grid dropped %d target points; regrowing cell capacity",
             nd_t)
         regrown = poolgrid.plan_poolgrid(
-            tgt_np, max_correspondence_distance, query_points=src_np_t,
-            est=est_code, cap_percentile=100.0)
+            tgt_np, max_dist, query_points=src_np_t, est=est_code,
+            cap_percentile=100.0)
         if regrown is not None:
             pplan = regrown
             grid = build(pplan)
             nd_t = int(grid.n_dropped)
     T, idx, fit, rmse, it, nq_drop = fused_icp.icp_core_pool(
-        src, src_mask, src_normals, grid, init_T,
-        max_correspondence_distance, pplan["rebin_margin"],
-        criteria.relative_fitness, criteria.relative_rmse, pplan["qp"],
-        est_type, criteria.max_iteration)
+        src, src_mask, src_aux, grid, init_T, max_dist,
+        pplan["rebin_margin"], criteria.relative_fitness,
+        criteria.relative_rmse, pplan["qp"], est_type,
+        criteria.max_iteration, extra_params=extra_params)
     console.log_debug("pooled ICP finished after %s iterations", it)
     res = _make_result(T, idx, fit, rmse, len(source))
     res.n_dropped_target = nd_t
@@ -270,17 +402,11 @@ def registration_icp(
 
 
 def _registration_icp_rungrid(source, src, src_mask, src_normals, tgt,
-                              tgt_mask, attrs, est_code, src_np_t, tgt_np,
-                              init_T, max_dist, est_type, criteria):
-    """The run-grid fallback of `registration_icp`, for targets whose
-    pool plan is rejected (pool cells that would need a cap above
-    128)."""
-    plan = rungrid.plan_rungrid(tgt_np, max_dist, query_points=src_np_t,
-                                nch=attrs.shape[1])
-    if plan is None:
-        raise NotImplementedError(
-            "registration_icp: both grid plans reject this target; the "
-            "roll, cell and hash grid branches are not ported yet")
+                              tgt_mask, attrs, est_code, plan, init_T,
+                              max_dist, est_type, criteria):
+    """The run-grid branch of `registration_icp` (PT2PT, PT2PL, SYM), for
+    targets whose pool plan is rejected (pool cells that would need a
+    cap above 128)."""
     grid = rungrid.make_rungrid(
         tgt, attrs, plan["origin"], plan["cell_size"], plan["dims"],
         plan["cap"], mask=tgt_mask, est=est_code, kc=plan["kc"])
@@ -332,6 +458,5 @@ def evaluate_registration(source, target,
     zeros = torch.zeros_like(src)
     T_out, idx, fit, rmse, _ = _icp_core(
         src, src_mask, zeros, tgt, tgt_mask, torch.zeros_like(tgt), T,
-        max_correspondence_distance, 0.0, 0.0,
-        TransformationEstimationType.PointToPoint, 0)
+        max_correspondence_distance, 0.0, 0.0, _ET.PointToPoint, 0)
     return _make_result(T_out, idx, fit, rmse, len(source))

@@ -1,8 +1,10 @@
 """Small linear solves for the Gauss-Newton step (cupoch
 utility/eigen.h: SolveLinearSystemPSD, SolveJacobianSystemAndObtain-
-ExtrinsicMatrix)."""
+ExtrinsicMatrix), and the closed-form batched 3x3 eigen helpers of
+normal estimation and Generalized ICP (utility/eigenvalue.h)."""
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -69,3 +71,104 @@ def solve_jacobian_system(JTJ: torch.Tensor, JTr: torch.Tensor
     T = transforms.transform_vector6_to_matrix4(x)
     T = torch.where(ok, T, torch.eye(4, dtype=T.dtype, device=T.device))
     return ok, T
+
+
+def _det3(B: torch.Tensor) -> torch.Tensor:
+    """Determinant of batched 3x3 matrices, by cofactors along row 0."""
+    return (B[..., 0, 0] * (B[..., 1, 1] * B[..., 2, 2]
+                            - B[..., 1, 2] * B[..., 2, 1])
+            - B[..., 0, 1] * (B[..., 1, 0] * B[..., 2, 2]
+                              - B[..., 1, 2] * B[..., 2, 0])
+            + B[..., 0, 2] * (B[..., 1, 0] * B[..., 2, 1]
+                              - B[..., 1, 1] * B[..., 2, 0]))
+
+
+def _unit(v: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(v / max(|v|, eps), |v|) along the last axis."""
+    norm = torch.sqrt((v * v).sum(-1, keepdim=True))
+    return v / norm.clamp(min=eps), norm
+
+
+def symeig3x3(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Closed-form eigendecomposition of batched symmetric 3x3 matrices
+    (cupoch FastEigen3x3's role), in the working type, with no
+    iteration: the trigonometric eigenvalue formula and cross-product
+    eigenvectors. Returns (eigenvalues ascending [..., 3], eigenvectors
+    [..., 3, 3] with [..., :, i] the i-th)."""
+    eps = 1e-12
+    eye = torch.eye(3, dtype=A.dtype, device=A.device)
+    q = (A[..., 0, 0] + A[..., 1, 1] + A[..., 2, 2]) / 3.0
+    B = A - q[..., None, None] * eye
+    p2 = (B * B).sum((-2, -1)) / 6.0
+    p = torch.sqrt(p2.clamp(min=eps))
+    r = (_det3(B) / (2.0 * p.clamp(min=eps) ** 3)).clamp(-1.0, 1.0)
+    phi = torch.arccos(r) / 3.0
+    e1 = q + 2.0 * p * torch.cos(phi)
+    e3 = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)
+    e2 = 3.0 * q - e1 - e3
+    # (near-)isotropic matrices: every direction is an eigenvector
+    iso = p2 < eps
+    vals = torch.where(iso[..., None], torch.stack([q, q, q], -1),
+                       torch.stack([e3, e2, e1], -1))
+
+    def eigvec(lam):
+        M = A - lam[..., None, None] * eye
+        r0, r1, r2 = M[..., 0, :], M[..., 1, :], M[..., 2, :]
+        cands = torch.stack([torch.linalg.cross(r0, r1, dim=-1),
+                             torch.linalg.cross(r0, r2, dim=-1),
+                             torch.linalg.cross(r1, r2, dim=-1)], -2)
+        best = (cands * cands).sum(-1).argmax(-1)
+        v = torch.gather(cands, -2, best[..., None, None].expand(
+            best.shape + (1, 3)))[..., 0, :]
+        u, norm = _unit(v, eps)
+        fallback = torch.tensor([1.0, 0.0, 0.0], dtype=A.dtype,
+                                device=A.device).expand_as(v)
+        return torch.where(norm > eps, u, fallback)
+
+    v0 = eigvec(vals[..., 0])
+    v2 = eigvec(vals[..., 2])
+    # orthogonalise the largest against the smallest, then v1 = v2 x v0
+    v2 = v2 - (v2 * v0).sum(-1, keepdim=True) * v0
+    u2, n2 = _unit(v2, eps)
+    v2 = torch.where(n2 > eps, u2, _any_orthonormal(v0))
+    v1 = torch.linalg.cross(v2, v0, dim=-1)
+    vecs = torch.stack([v0, v1, v2], -1)
+    vecs = torch.where(iso[..., None, None], eye.expand_as(vecs), vecs)
+    return vals, vecs
+
+
+def _any_orthonormal(v: torch.Tensor) -> torch.Tensor:
+    """A unit vector orthogonal to unit v (branch-free)."""
+    ex = torch.tensor([1.0, 0.0, 0.0], dtype=v.dtype, device=v.device)
+    ey = torch.tensor([0.0, 1.0, 0.0], dtype=v.dtype, device=v.device)
+    a = torch.where(v[..., 0:1].abs() > 0.9, ey, ex)
+    return _unit(torch.linalg.cross(v, a.expand_as(v), dim=-1), 1e-12)[0]
+
+
+def sqrtm_psd3(A: torch.Tensor) -> torch.Tensor:
+    """Symmetric square root of batched PSD 3x3 matrices (cupoch
+    SqrtMatrix3x3)."""
+    vals, vecs = symeig3x3(A)
+    s = torch.sqrt(vals.clamp(min=0.0))
+    return torch.einsum("...ij,...j,...kj->...ik", vecs, s, vecs)
+
+
+def rotation_e1_to_x(x: torch.Tensor) -> torch.Tensor:
+    """Rotations taking e1 = (1, 0, 0) to the unit vectors x [..., 3]
+    (cupoch generalized_icp.cu GetRotationFromE1ToX); antiparallel x
+    gets a half turn about an axis orthogonal to e1."""
+    e1 = torch.tensor([1.0, 0.0, 0.0], dtype=x.dtype, device=x.device)
+    v = torch.linalg.cross(e1.expand_as(x), x, dim=-1)
+    c = x[..., 0]                                   # e1 . x
+    eye = torch.eye(3, dtype=x.dtype, device=x.device) \
+        .expand(x.shape[:-1] + (3, 3))
+    flip = torch.tensor([[-1.0, 0, 0], [0, 1.0, 0], [0, 0, -1.0]],
+                        dtype=x.dtype, device=x.device).expand_as(eye)
+    a, b, cc = v[..., 0], v[..., 1], v[..., 2]
+    zero = torch.zeros_like(a)
+    sv = torch.stack([torch.stack([zero, -cc, b], -1),
+                      torch.stack([cc, zero, -a], -1),
+                      torch.stack([-b, a, zero], -1)], -2)
+    factor = 1.0 / (1.0 + c).clamp(min=1e-8)
+    R = eye + sv + (sv @ sv) * factor[..., None, None]
+    return torch.where((c < -1.0 + 1e-6)[..., None, None], flip, R)

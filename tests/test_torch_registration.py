@@ -29,7 +29,9 @@ from cupoch_tpu.registration.estimation import (
 )
 import cupoch_tpu_torch.registration as treg
 from cupoch_tpu_torch.geometry import PointCloud as TPointCloud
+from cupoch_tpu_torch.knn import cellgrid as tcellg
 from cupoch_tpu_torch.knn import poolgrid as tpg
+from cupoch_tpu_torch.knn import rollgrid as trollg
 from cupoch_tpu_torch.knn import rungrid as trg
 from cupoch_tpu_torch.registration import estimation as test_
 from cupoch_tpu_torch.registration import fused_icp as ticp
@@ -205,25 +207,60 @@ def test_torch_registration_icp_matches_jax(rng):
 
 @pytest.mark.parametrize("branch", ["ColoredICP", "GeneralizedICP",
                                     "grids_reject"])
-def test_torch_registration_icp_unported_branches_raise(rng, branch):
-    """What stays unported raises NotImplementedError naming it: Colored
-    and Generalized ICP, and a target above the grid threshold that
-    both the pool plan and the run plan reject (the JAX package's
-    roll, cell and hash grids)."""
+def test_torch_registration_icp_former_unported_branches_match_jax(
+        rng, branch):
+    """The branches earlier slices left raising, against the JAX
+    package: Colored and Generalized ICP through `registration_icp` on a
+    1000-point wavy surface (brute force), and a 21k-point target that
+    every grid plan rejects, which takes the brute-force fallback (at
+    most 200k points). Poses within 1e-3 of JAX's and of the truth,
+    fitness within 5e-3 of JAX's."""
     if branch == "grids_reject":
         # 21k points in a 0.15 cube: every grid cell would need a cap
         # above 128
-        big = TPointCloud(_cloud(rng, 21000) * 0.15, device="cpu")
-        tgt_np = big.points.numpy()
-        assert tpg.plan_poolgrid(tgt_np, 0.05, query_points=tgt_np) is None
-        assert trg.plan_rungrid(tgt_np, 0.05, query_points=tgt_np) is None
-        with pytest.raises(NotImplementedError, match="roll, cell and hash"):
-            treg.registration_icp(big, big, 0.05)
-        return
-    small = TPointCloud(_cloud(rng, 1000), device="cpu")
-    est = getattr(treg, "TransformationEstimationFor" + branch)()
-    with pytest.raises(NotImplementedError, match=branch):
-        treg.registration_icp(small, small, 0.05, estimation=est)
+        tgt, tn, src, Tgt = _rigid_pair(rng, 21000, 0.01,
+                                        [0.002, -0.001, 0.0015])
+        tgt, src = tgt * 0.15, src * 0.15
+        Tgt[:3, 3] *= 0.15
+        r = 0.05
+        assert tpg.plan_poolgrid(tgt, r, query_points=src) is None
+        assert trg.plan_rungrid(tgt, r, query_points=src) is None
+        assert trollg.plan_rollgrid(tgt, r) is None
+        assert tcellg.plan_cellgrid(tgt, r) is None
+        jest_, test_est = None, None
+    else:
+        xy = rng.uniform(-1, 1, size=(1000, 2)).astype(np.float32)
+        z = 0.25 * np.sin(2.5 * xy[:, 0]) * np.cos(1.5 * xy[:, 1])
+        tgt = np.column_stack([xy, z]).astype(np.float32)
+        Tgt = np.eye(4, dtype=np.float32)
+        ang = 0.03
+        Tgt[:2, :2] = [[np.cos(ang), -np.sin(ang)],
+                       [np.sin(ang), np.cos(ang)]]
+        Tgt[:3, 3] = [0.01, -0.015, 0.02]
+        src = ((tgt - Tgt[:3, 3]) @ Tgt[:3, :3]).astype(np.float32)
+        tn = _normals(rng, 1000)
+        r = 0.2
+        jest_ = getattr(jreg, "TransformationEstimationFor" + branch)()
+        test_est = getattr(treg, "TransformationEstimationFor" + branch)()
+    jt, js = JPointCloud(jnp.asarray(tgt)), JPointCloud(jnp.asarray(src))
+    tt, ts = TPointCloud(tgt, device="cpu"), TPointCloud(src, device="cpu")
+    if branch == "ColoredICP":
+        c = 0.5 + 0.4 * np.sin(4.0 * tgt[:, :1]) * np.cos(3.0 * tgt[:, 1:2])
+        cols = np.repeat(c, 3, axis=1).astype(np.float32)
+        jt.normals, jt.colors, js.colors = (jnp.asarray(tn),
+                                            jnp.asarray(cols),
+                                            jnp.asarray(cols))
+        tt.normals, tt.colors, ts.colors = tn, cols, cols
+    rj = jreg.registration_icp(
+        js, jt, r, estimation=jest_,
+        criteria=jreg.ICPConvergenceCriteria(max_iteration=30))
+    rt = treg.registration_icp(
+        ts, tt, r, estimation=test_est,
+        criteria=treg.ICPConvergenceCriteria(max_iteration=30))
+    assert np.abs(rt.transformation - Tgt).max() < 1e-3
+    assert np.abs(rt.transformation - rj.transformation).max() < 1e-3
+    assert abs(rt.fitness - rj.fitness) < 5e-3
+    assert rt.fitness > 0.99
 
 
 @pytest.mark.parametrize("est_name", ESTS)

@@ -10,7 +10,8 @@ Phases, each printed on its own line:
   2. build: compiles every kernel under cupoch_tpu_torch/csrc with nvcc,
      one process per source, all at once;
   3. kernels, each against its plain PyTorch version on the same inputs,
-     with times and the roofline bound:
+     with times and the roofline bound (and for kernels 3 and 4 their
+     occupancy, ptxas registers and a computed issue ceiling):
      - the pooled-grid slot kernel at the headline grid (1M points in
        [0,2]^3, radius 0.05), in the Gauss-Newton configuration
        (identity pose) and in the exact one (the true pose);
@@ -20,11 +21,14 @@ Phases, each printed on its own line:
        symmetric at the plan of the run-grid ICP fallback (1M points in
        [0,1.4]^3, whose pool plan is rejected);
      - the run-grid Gaussian-moment kernel at the FilterReg plan (the
-       geometry of tests/test_filterreg.py scaled to 1M points);
+       geometry of tests/test_filterreg.py scaled to 1M points), and on
+       two queries of one cell whose |e| differ in their last bits, with
+       a lane that only the farther one reaches;
      - the roll/cell-grid reduce (kernel 4) at the roll plan of the
        [0,1.4]^3 cloud (identity and true pose) and at the cell plan of
        a 500k-point wavy sheet, with the time of the nearest library
-       composite (`torch.cdist` + min);
+       composite (`torch.cdist` + min), and each grid's build time and
+       memory with its lane rank's share;
   4. paths, each through the public entry with every launch count set
      to 0 just before it and read just after:
      - `registration_icp` (point-to-plane, 20 iterations, relative
@@ -39,7 +43,7 @@ Phases, each printed on its own line:
        (Gauss-Newton launches = iterations, one correspondence launch),
        then its loop on a prebuilt grid timed and profiled;
      - `registration_filterreg` on the scaled FilterReg pair (moment
-       launches = its E-steps);
+       launches = its E-steps), then the call timed and profiled;
      - Colored ICP and GICP: `registration_colored_icp` (roll grid) and
        `registration_generalized_icp` from points alone (normals
        estimated at 1M points; roll grid) on the [0,1.4]^3 cloud, both
@@ -66,6 +70,14 @@ import time
 # the H100 SXM data sheet: HBM rate and f32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# issue: 4 warp-instructions a clock an SM, each for 32 threads
+ISSUE_PER_CLOCK_SM = 4 * 32
+# instructions a (query, lane) visit in the hot loops, counted from the
+# sources: kernel 3: 7 for d2, the r^2 cut, the clamp, the scale, the
+# exp, zeroing a weight past r, 5 moment sums; kernel 4: 8 rounded
+# operations, the compare and 2 selects
+K3_INSTR_PER_VISIT = 17
+K4_INSTR_PER_VISIT = 11
 
 N_POINTS = 1_000_000
 RADIUS = 0.05
@@ -188,6 +200,25 @@ def _bound(n_bytes, n_ops):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _issue_ms(visits, instr, card_clock):
+    """Computed issue ceiling: `visits` (query, lane) pairs at `instr`
+    instructions each, issued at ISSUE_PER_CLOCK_SM on every SM of the
+    card at its maximum SM clock (`card_clock` = (SMs, Hz))."""
+    sms, hz = card_clock
+    return visits * instr / (ISSUE_PER_CLOCK_SM * sms * hz) * 1e3
+
+
+def _kernel_build(nvcc, name, occupancy):
+    """The ptxas register / spill lines of `name`'s build, and the
+    kernel's occupancy at these shapes as the runtime reports it."""
+    ptxas = " | ".join(ln.strip().replace("ptxas info    : ", "")
+                       for ln in nvcc.build_logs.get(name, "").splitlines()
+                       if "Used" in ln or "spill" in ln) or "cached"
+    blocks, warps = occupancy
+    return (f"occupancy {blocks} blocks of {warps} warps an SM; ptxas: "
+            f"{ptxas}")
 
 
 def _scores(torch, grid, qpool, params, slot):
@@ -377,10 +408,33 @@ def check_fused_gn(torch, rungrid, rungrid_fused, fused_icp, est_type, grid,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def check_gmm(torch, rungrid, rungrid_gmm, grid, qsoa, qidx, params):
-    """Kernel 3 against gmm_plain (rtol 2e-5, atol 1e-5)."""
-    got = rungrid_gmm.gmm_pass(grid, qsoa, qidx, params)
-    want = rungrid_gmm.gmm_plain(grid, qsoa, qidx, params)
+def _gmm_scanned(torch, rungrid, grid, qsoa, qidx, params):
+    """(query, lane) visits kernel 3 makes: per cell its valid queries
+    sorted by |e|, 8 a warp; a warp scans the windows its farthest query
+    reaches, for 8 query slots (4 when it holds at most 4 queries)."""
+    cp, _, qcap = qsoa.shape
+    p = params
+    cen = rungrid.cell_centers(grid.dims, p[13:16], p[16], cp)
+    q = qsoa[:, :3]
+    e = torch.stack([p[3 * i] * q[:, 0] + p[3 * i + 1] * q[:, 1]
+                     + p[3 * i + 2] * q[:, 2] + p[9 + i] - cen[:, i, None]
+                     for i in range(3)], 1)
+    d = torch.where(qidx >= 0, e.norm(dim=1), float("inf"))
+    d = torch.sort(d, 1).values
+    pad = (-qcap) % 8
+    d = torch.nn.functional.pad(d, (0, pad), value=float("inf"))
+    g = d.reshape(cp, -1, 8)
+    cnt = torch.isfinite(g).sum(-1)                        # [cp, G]
+    far = torch.where(torch.isfinite(g), g, 0.0).max(-1).values
+    reach = torch.sqrt(p[12]) + far
+    windows = (grid.bounds[:, None, :] <= reach[..., None]).sum(-1)
+    slots = torch.where(cnt > 4, 8, torch.where(cnt > 0, 4, 0))
+    return int((windows * slots).sum()) * rungrid.WINDOW
+
+
+def gmm_gap(torch, got, want, what="gmm kernel"):
+    """Largest gap between moments `got` and gmm_plain's `want`; raises
+    where one lies beyond rtol GMM_RTOL, atol GMM_ATOL."""
     torch.cuda.synchronize()
     max_err = 0.0
     for name, a, b in zip(("m0", "m1x", "m1y", "m1z", "m2"), got, want):
@@ -388,8 +442,87 @@ def check_gmm(torch, rungrid, rungrid_gmm, grid, qsoa, qidx, params):
         max_err = max(max_err, float(gap.max()))
         bad = int((gap > GMM_ATOL + GMM_RTOL * b.abs()).sum())
         if bad:
-            raise AssertionError(f"gmm kernel: {bad} {name} values beyond "
+            raise AssertionError(f"{what}: {bad} {name} values beyond "
                                  f"rtol {GMM_RTOL} atol {GMM_ATOL}")
+    return max_err
+
+
+def gmm_case(np, torch, rungrid, rsrc, rtgt, sigma0, dev):
+    """Kernel 3's inputs at the FilterReg plan of the pair (rsrc, rtgt)
+    at sigma0, as the E-step at the identity gives them: (grid, qsoa,
+    qidx, params)."""
+    n = len(rtgt)
+    trunc = 3.0 * sigma0
+    rplan = rungrid.plan_rungrid(rtgt, trunc, margin=0.25,
+                                 query_points=rsrc, nch=0)
+    rtgt_d = torch.as_tensor(rtgt, device=dev)
+    rsrc_d = torch.as_tensor(rsrc, device=dev)
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    grid = rungrid.make_rungrid(
+        rtgt_d, rtgt_d.new_zeros((n, 0)), rplan["origin"],
+        rplan["cell_size"], rplan["dims"], rplan["cap"], mask=mask)
+    print(f"filterreg plan: dims {rplan['dims']} cap {rplan['cap']} kc "
+          f"{grid.kc} (plan kc {rplan['kc']}) qcap {rplan['qcap']} "
+          f"sigma_initial {sigma0:.6f}")
+    qsoa, qidx = rungrid.bin_queries(
+        rsrc_d, rsrc_d, grid.origin, grid.cell_size, grid.dims,
+        rplan["qcap"], mask=mask)
+    params = rungrid.make_params(torch.eye(4), torch.tensor(trunc) ** 2,
+                                 grid, inv_2s2=1.0 / (2.0 * sigma0 * sigma0))
+    return grid, qsoa, qidx, params
+
+
+def gmm_tie_case(np, torch, rungrid, dev):
+    """Two queries of one cell whose |e| differ by 800 ulp (B in slot 0
+    the farther, A in slot 1) and a lane at |c| between r + |e_A| and
+    r + |e_B|, on the line through B, with that |c| as its window's
+    bound: B reaches the window and A does not, and the lane lies inside
+    r of B (weight about exp(-4.5) at trunc = 3 sigma). A kernel that
+    took A for the farther query would drop it. (grid, qsoa, qidx,
+    params); the cell's centre is the origin of e."""
+    f32 = np.float32
+    base = int(np.array(0.2, f32).view(np.uint32)) & ~0x3FF
+    dA, dB = np.array([base + 100, base + 900], np.uint32).view(f32)
+    r = f32(0.1)
+    r2 = r * r
+    rr = np.sqrt(r2)
+    dqA, dqB = np.sqrt(dA * dA), np.sqrt(dB * dB)
+    L = rr + (dqA + dqB) / f32(2)
+    d2B = ((L * L + dB * (f32(-2) * L)) + f32(0)) + f32(0) + dB * dB
+    if not (rr + dqA < L <= rr + dqB and d2B <= r2):
+        raise AssertionError("the near-equal |e| case is not built as meant")
+    kc, qcap, w = 2 * rungrid.WINDOW, 8, rungrid.WINDOW
+    # window 0: 128 lanes within r of both queries, |c| from 0.15 up;
+    # window 1: the lane above, then empty lanes
+    c = np.concatenate([f32(0.15) + f32(1e-3) * np.arange(w, dtype=f32),
+                        [L]]).astype(f32)
+    cand = np.zeros((1, 4, kc), f32)
+    cand[0, 3] = rungrid.BIG
+    cand[0, 0, :w + 1], cand[0, 3, :w + 1] = f32(-2) * c, c * c
+    negidx = np.ones((1, kc), f32)
+    negidx[0, :w + 1] = -np.arange(w + 1, dtype=f32)
+    bounds = np.array([[c[0], L]], f32)
+    qsoa = np.zeros((1, 3, qcap), f32)
+    qsoa[0, 0, :2] = dB, dA
+    qidx = np.full((1, qcap), -1, np.int32)
+    qidx[0, :2] = 0, 1
+    t = lambda a: torch.as_tensor(a, device=dev)
+    grid = rungrid.RunGrid(
+        t(cand), t(np.zeros((1, 0, kc), np.int32)), t(negidx), t(bounds),
+        t(np.zeros((0, 2), f32)), t(np.full(3, -0.5, f32)),
+        t(f32(1.0)), (1, 1, 1), 1, kc, rungrid.EST_NONE)
+    sigma = r / f32(3)
+    params = rungrid.make_params(torch.eye(4), torch.tensor(r2), grid,
+                                 inv_2s2=float(f32(1) / (f32(2) * sigma
+                                                         * sigma)))
+    return grid, t(qsoa), t(qidx), params
+
+
+def check_gmm(torch, rungrid, rungrid_gmm, nvcc, grid, qsoa, qidx, params,
+              card_clock):
+    """Kernel 3 against gmm_plain (rtol 2e-5, atol 1e-5)."""
+    max_err = gmm_gap(torch, rungrid_gmm.gmm_pass(grid, qsoa, qidx, params),
+                      rungrid_gmm.gmm_plain(grid, qsoa, qidx, params))
     ms = _time_ms(torch, lambda: rungrid_gmm.gmm_pass(
         grid, qsoa, qidx, params), TIMED_LAUNCHES)
     plain_ms = _time_ms(torch, lambda: rungrid_gmm.gmm_plain(
@@ -401,22 +534,106 @@ def check_gmm(torch, rungrid, rungrid_gmm, grid, qsoa, qidx, params):
         16)   # 7 for d2, compare, exp, 7 for the moments
     bound_ms, bound_by = _bound(n_bytes, n_ops)
     n_valid = int((qidx >= 0).sum())
+    need = n_ops // 16
+    scanned = _gmm_scanned(torch, rungrid, grid, qsoa, qidx, params)
+    issue_ms = _issue_ms(need, K3_INSTR_PER_VISIT, card_clock)
+    build = _kernel_build(nvcc, "rungrid_gmm", rungrid_gmm.occupancy(qcap))
     print(f"kernel[gmm]: cells {cp} qcap {qcap} kc {grid.kc}; {n_valid} "
           f"valid queries need {lanes:.0f} lanes each; max "
           f"gap {max_err}; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
           f"{bound_ms:.4f} ms by {bound_by} ({n_bytes / 1e9:.3f} GB, "
-          f"{n_ops / 1e9:.2f} G ops); library_ms null: {NO_LIBRARY}")
+          f"{n_ops / 1e9:.2f} G ops); issue ceiling {issue_ms:.4f} ms "
+          f"(computed: {need / 1e9:.3f} G visits the queries need at "
+          f"{K3_INSTR_PER_VISIT} instructions; the kernel scans "
+          f"{scanned / 1e9:.3f} G); {build}; library_ms null: {NO_LIBRARY}")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def check_nn_reduce(torch, rollgrid_nn, q_soa, cand, cidx, radius, mode):
+def _built(torch, rollgrid_nn, what, build):
+    """Runs `build` (a roll or cell grid on the card) and prints its time
+    and memory: the time of the call, the bytes the grid holds and the
+    peak above what was allocated before it, then the same for its lane
+    rank (`rollgrid_nn.lane_rank`, part of the build) alone."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    grid = build()
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    held = torch.cuda.memory_allocated() - base
+    peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    rank = rollgrid_nn.lane_rank(grid.cand_idx)
+    torch.cuda.synchronize()
+    rank_peak = torch.cuda.max_memory_allocated() - base
+    del rank
+    rank_ms = _time_ms(torch, lambda: rollgrid_nn.lane_rank(grid.cand_idx),
+                       3)
+    print(f"build[{what}]: {build_ms:.2f} ms, {held / 1e9:.3f} GB held, "
+          f"{peak / 1e9:.3f} GB peak; its lane rank {rank_ms:.3f} ms "
+          f"(median of 3 runs after one), {rank_peak / 1e9:.3f} GB peak "
+          f"with its {grid.cand_idx.numel() * 2 / 1e9:.3f} GB output")
+    return grid
+
+
+def nn_cases(np, torch, ftgt, fsrc, fT_true, dev):
+    """Kernel 4's inputs as the paths give them, one at a time: (mode,
+    binned queries, grid, radius) at the roll plan of the [0,1.4]^3
+    cloud (ftgt, the source fsrc at the identity and at the true pose
+    fT_true) and at the cell plan of the sheet, each grid's build timed
+    by `_built`."""
+    from cupoch_tpu_torch.knn import cellgrid, poolgrid, rollgrid
+    from cupoch_tpu_torch.knn import rollgrid_nn
+    roll_plan = rollgrid.plan_rollgrid(ftgt, RADIUS)
+    if roll_plan is None:
+        raise AssertionError("the fallback cloud's roll plan was rejected")
+    ftgt_d = torch.as_tensor(ftgt, device=dev)
+    fsrc_d = torch.as_tensor(fsrc, device=dev)
+    mask = torch.ones(len(ftgt), dtype=torch.bool, device=dev)
+    grid = _built(torch, rollgrid_nn, "roll", lambda: rollgrid.build_rollgrid(
+        ftgt_d, roll_plan["origin"], roll_plan["cell_size"],
+        roll_plan["dims"], roll_plan["cap"], mask=mask))
+    print(f"roll plan: dims {roll_plan['dims']} cap {roll_plan['cap']} kc "
+          f"{grid.cand.shape[2]} ({grid.cand.numel() * 4 / 1e9:.3f} GB "
+          f"of candidates)")
+    for mode, T in (("roll identity", np.eye(4, dtype=np.float32)),
+                    ("roll true pose", fT_true)):
+        q = fsrc_d @ torch.as_tensor(T[:3, :3].T, device=dev) \
+            + torch.as_tensor(T[:3, 3], device=dev)
+        yield mode, rollgrid.bin_queries(grid, q)[0], grid, RADIUS
+        del q
+    del grid
+    sheet, _ = _sheet(np)
+    sheet_src = sheet + np.float32(SHEET_SHIFT)
+    if poolgrid.plan_poolgrid(sheet, SHEET_RADIUS, query_points=sheet_src,
+                              est=poolgrid.EST_COLORED) is not None \
+            or rollgrid.plan_rollgrid(sheet, SHEET_RADIUS) is not None:
+        raise AssertionError("the sheet's pool or roll plan was accepted")
+    cplan = cellgrid.plan_cellgrid(sheet, SHEET_RADIUS)
+    if cplan is None:
+        raise AssertionError("the sheet's cell plan was rejected")
+    sheet_d = torch.as_tensor(sheet, device=dev)
+    grid = _built(torch, rollgrid_nn, "cell", lambda: cellgrid.build_cellgrid(
+        sheet_d, cplan["origin"], cplan["cell_size"], cplan["active"],
+        cplan["dims"], cplan["cap"], cplan["n_active"]))
+    print(f"cell plan: dims {cplan['dims']} cap {cplan['cap']} active "
+          f"{cplan['n_active']} kc {grid.cand.shape[2]}")
+    yield ("cell", cellgrid.bin_queries(
+        grid, torch.as_tensor(sheet_src, device=dev))[0], grid, SHEET_RADIUS)
+
+
+def check_nn_reduce(torch, rollgrid_nn, nvcc, q_soa, grid, radius, mode,
+                    card_clock):
     """Kernel 4 against nn_reduce_plain on the same binned queries: idx
     equal on every query and d2 bit for bit (both round every operation
     on its own, in one order); failing that, >= 99.99% equal with every
     d2 gap within 1 ulp."""
+    cand, cidx, rank = grid.cand, grid.cand_idx, grid.cand_rank
     r2 = torch.tensor(radius, dtype=torch.float32) ** 2
-    ik, dk = rollgrid_nn.nn_reduce(q_soa, cand, cidx, r2)
+    ik, dk = rollgrid_nn.nn_reduce(q_soa, cand, cidx, r2, rank)
     ip, dp = rollgrid_nn.nn_reduce_plain(q_soa, cand, cidx, r2)
     torch.cuda.synchronize()
     valid = q_soa[:, 0] != QUERY_FILL                       # [C, qcap]
@@ -437,7 +654,8 @@ def check_nn_reduce(torch, rollgrid_nn, q_soa, cand, cidx, radius, mode):
         raise AssertionError(f"nn reduce ({mode}): winners equal on "
                              f"{same:.6f}, max d2 gap {max_err}")
     ms = _time_ms(torch, lambda: rollgrid_nn.nn_reduce(q_soa, cand, cidx,
-                                                       r2), TIMED_LAUNCHES)
+                                                       r2, rank),
+                  TIMED_LAUNCHES)
     plain_ms = _time_ms(torch, lambda: rollgrid_nn.nn_reduce_plain(
         q_soa, cand, cidx, r2), 2)
     # the nearest library yardstick: cdist over the same [qcap] x [KC]
@@ -447,23 +665,32 @@ def check_nn_reduce(torch, rollgrid_nn, q_soa, cand, cidx, radius, mode):
     composite_ms = _time_ms(torch, lambda: torch.cdist(qx, cx).min(-1), 3)
     del qx, cx
     # least work for this run's data: a cell holding a valid query reads
-    # its whole candidate row (16 bytes a lane; the 27 runs interleave
-    # empty slots with real ones, so no lane can go unread) and its query
-    # rows; an idle cell reads its first query channel; every cell writes
-    # its outputs. 8 f32 operations per (valid query, lane).
+    # every lane's index (the 27 runs interleave empty slots with real
+    # ones, so no lane can go unread), the coordinates of its real lanes
+    # and its query rows; an idle cell reads its first query channel;
+    # every cell writes its outputs. 8 f32 operations per (valid query,
+    # real lane): an empty lane cannot be the answer.
     C, _, qcap = q_soa.shape
     KC = cand.shape[2]
-    busy = int(valid.any(1).sum())
-    n_bytes = busy * KC * 16 + busy * qcap * 12 + (C - busy) * qcap * 4 \
-        + C * qcap * 8
-    n_ops = n_valid * KC * 8
+    busy_cells = valid.any(1)
+    busy = int(busy_cells.sum())
+    real = (cidx >= 0).sum(1)                                  # [C]
+    n_bytes = busy * KC * 4 + int(real[busy_cells].sum()) * 12 \
+        + busy * qcap * 12 + (C - busy) * qcap * 4 + C * qcap * 8
+    visits = int((valid.sum(1) * real).sum())
+    n_ops = visits * 8
     bound_ms, bound_by = _bound(n_bytes, n_ops)
+    issue_ms = _issue_ms(visits, K4_INSTR_PER_VISIT, card_clock)
+    build = _kernel_build(nvcc, "rollgrid_nn",
+                          rollgrid_nn.occupancy(qcap, KC))
     print(f"kernel[nn reduce {mode}]: cells {C} (busy {busy}) qcap {qcap} "
           f"kc {KC}; idx equal on {same:.6f} of {n_valid} valid queries, "
           f"bit for bit {exact}, max d2 gap {max_err}; kernel {ms:.4f} ms, "
           f"plain {plain_ms:.2f} ms, cdist+min composite {composite_ms:.3f} "
           f"ms, bound {bound_ms:.4f} ms by {bound_by} ({n_bytes / 1e9:.3f} "
-          f"GB, {n_ops / 1e9:.2f} G ops); library_ms null: {NO_LIBRARY_NN}")
+          f"GB, {n_ops / 1e9:.2f} G ops); issue ceiling {issue_ms:.4f} ms "
+          f"(computed: {visits / 1e9:.3f} G visits at {K4_INSTR_PER_VISIT} "
+          f"instructions); {build}; library_ms null: {NO_LIBRARY_NN}")
     return {"mode": mode, "equal": same, "bit_exact": exact,
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "composite_ms": composite_ms, "bound_ms": bound_ms,
@@ -479,7 +706,7 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this run needs an NVIDIA GPU")
     import cupoch_tpu_torch as ctt
-    from cupoch_tpu_torch.knn import (cellgrid, poolgrid, poolgrid_slot,
+    from cupoch_tpu_torch.knn import (poolgrid, poolgrid_slot,
                                       rollgrid, rollgrid_nn, rungrid,
                                       rungrid_fused, rungrid_gmm)
     from cupoch_tpu_torch.registration import fused_icp
@@ -509,6 +736,13 @@ def main():
     print(card)
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
+    max_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0])
+    card_clock = (torch.cuda.get_device_properties(0).multi_processor_count,
+                  max_mhz * 1e6)
+    print(f"card: {card_clock[0]} SMs, maximum SM clock {max_mhz:.0f} MHz")
     t_start = time.perf_counter()
 
     # 2. build
@@ -615,70 +849,34 @@ def main():
             rungrid.make_params(torch.eye(4), r2, fgrid)))
         del fgrid, qsoa, qidx
 
-    # 3d. kernel 3 at the FilterReg plan
+    # 3d. kernel 3 at the FilterReg plan, and on two queries whose |e|
+    # differ in their last bits
     rsrc, rtgt, sigma0, rT_true = _filterreg_pair(np, N_POINTS)
-    trunc = 3.0 * sigma0
-    rplan = rungrid.plan_rungrid(rtgt, trunc, margin=0.25,
-                                 query_points=rsrc, nch=0)
+    rgrid, qsoa, qidx, gparams = gmm_case(np, torch, rungrid, rsrc, rtgt,
+                                          sigma0, dev)
+    gmm_rec = check_gmm(torch, rungrid, rungrid_gmm, nvcc, rgrid, qsoa,
+                        qidx, gparams, card_clock)
+    del rgrid, qsoa, qidx, gparams
+    tie = gmm_tie_case(np, torch, rungrid, dev)
+    tie_gap = gmm_gap(torch, rungrid_gmm.gmm_pass(*tie),
+                      rungrid_gmm.gmm_plain(*tie),
+                      "gmm kernel, near-equal |e|")
+    print(f"kernel[gmm near-equal |e|]: 2 queries 800 ulp apart in |e|, a "
+          f"lane only the farther reaches; max gap {tie_gap}")
     rtgt_d = torch.as_tensor(rtgt, device=dev)
     rsrc_d = torch.as_tensor(rsrc, device=dev)
-    rgrid = rungrid.make_rungrid(
-        rtgt_d, rtgt_d.new_zeros((N_POINTS, 0)), rplan["origin"],
-        rplan["cell_size"], rplan["dims"], rplan["cap"], mask=mask)
-    print(f"filterreg plan: dims {rplan['dims']} cap {rplan['cap']} kc "
-          f"{rgrid.kc} (plan kc {rplan['kc']}) qcap {rplan['qcap']} "
-          f"sigma_initial {sigma0:.6f}")
-    qsoa, qidx = rungrid.bin_queries(
-        rsrc_d, rsrc_d, rgrid.origin, rgrid.cell_size, rgrid.dims,
-        rplan["qcap"], mask=mask)
-    gmm_rec = check_gmm(torch, rungrid, rungrid_gmm, rgrid, qsoa, qidx,
-                        rungrid.make_params(
-                            torch.eye(4), torch.tensor(trunc) ** 2, rgrid,
-                            inv_2s2=1.0 / (2.0 * sigma0 * sigma0)))
-    del rgrid, qsoa, qidx
 
     # 3e. kernel 4 at the roll plan of the fallback cloud, at the identity
     # and at the true pose, and at the cell plan of the sheet
+    nn_recs = [check_nn_reduce(torch, rollgrid_nn, nvcc, q_soa, grid, radius,
+                               mode, card_clock)
+               for mode, q_soa, grid, radius in nn_cases(
+                   np, torch, ftgt, fsrc, fT_true, dev)]
     roll_plan = rollgrid.plan_rollgrid(ftgt, RADIUS)
-    if roll_plan is None:
-        raise AssertionError("the fallback cloud's roll plan was rejected")
-    grid4 = rollgrid.build_rollgrid(
-        ftgt_d, roll_plan["origin"], roll_plan["cell_size"],
-        roll_plan["dims"], roll_plan["cap"], mask=mask)
-    print(f"roll plan: dims {roll_plan['dims']} cap {roll_plan['cap']} kc "
-          f"{grid4.cand.shape[2]} ({grid4.cand.numel() * 4 / 1e9:.3f} GB "
-          f"of candidates)")
-    nn_recs = []
-    for mode, T in (("roll identity", np.eye(4, dtype=np.float32)),
-                    ("roll true pose", fT_true)):
-        q = fsrc_d @ torch.as_tensor(T[:3, :3].T, device=dev) \
-            + torch.as_tensor(T[:3, 3], device=dev)
-        q_soa, _ = rollgrid.bin_queries(grid4, q)
-        nn_recs.append(check_nn_reduce(torch, rollgrid_nn, q_soa,
-                                       grid4.cand, grid4.cand_idx, RADIUS,
-                                       mode))
-        del q, q_soa
-    del grid4
     sheet, sheet_n = _sheet(np)
     sheet_src = sheet + np.float32(SHEET_SHIFT)
-    if poolgrid.plan_poolgrid(sheet, SHEET_RADIUS, query_points=sheet_src,
-                              est=poolgrid.EST_COLORED) is not None \
-            or rollgrid.plan_rollgrid(sheet, SHEET_RADIUS) is not None:
-        raise AssertionError("the sheet's pool or roll plan was accepted")
-    cplan = cellgrid.plan_cellgrid(sheet, SHEET_RADIUS)
-    if cplan is None:
-        raise AssertionError("the sheet's cell plan was rejected")
     sheet_d = torch.as_tensor(sheet, device=dev)
     sheet_src_d = torch.as_tensor(sheet_src, device=dev)
-    grid4 = cellgrid.build_cellgrid(
-        sheet_d, cplan["origin"], cplan["cell_size"], cplan["active"],
-        cplan["dims"], cplan["cap"], cplan["n_active"])
-    print(f"cell plan: dims {cplan['dims']} cap {cplan['cap']} active "
-          f"{cplan['n_active']} kc {grid4.cand.shape[2]}")
-    q_soa, _ = cellgrid.bin_queries(grid4, sheet_src_d)
-    nn_recs.append(check_nn_reduce(torch, rollgrid_nn, q_soa, grid4.cand,
-                                   grid4.cand_idx, SHEET_RADIUS, "cell"))
-    del grid4, q_soa
 
     # 4. paths, through the public entries
     source = ctt.geometry.PointCloud(src_d)
@@ -844,6 +1042,16 @@ def main():
     if c["gmm"] != e_steps or c["fused_gn"] or c["fused_corres"]:
         raise AssertionError(f"filterreg launches {c} for {e_steps} "
                              f"E-steps")
+
+    def freg():
+        out = ctt.registration.registration_filterreg(rsource, rtarget,
+                                                      option=fr_opt)
+        torch.cuda.synchronize()
+        return out
+
+    freg_call_s, _ = timed(freg, reps=1)
+    profile(torch, "registration_filterreg, host plan and grid build "
+            "included", freg, freg_call_s)
     del rsource, rtarget, rtgt_d, rsrc_d
 
     colored_gicp_paths(np, torch, ctt, rollgrid, reset_counts, counts,

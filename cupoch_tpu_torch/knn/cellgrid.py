@@ -31,21 +31,22 @@ import numpy as np
 import torch
 
 from ..utility.device import resolve_device
-from .rollgrid import (CAND_FILL, INVALID_INDEX, OFFSETS, _bin_by_key,
-                       _bin_query_soa, _cell_keys, _round_up,
-                       reduce_and_scatter)
+from .rollgrid import (CAND_FILL, INVALID_INDEX, LANE_BYTES, OFFSETS,
+                       LaneRanked, _bin_by_key, _bin_query_soa, _cell_keys,
+                       _round_up, reduce_and_scatter)
 
 
-class CellGrid:
+class CellGrid(LaneRanked):
     """The built grid: cand [A, 3, KC] f32 (3e18 empty), cand_idx
-    [A, KC] int32 (-1 empty), lut [C + 2] int32 (cell -> slot, -1
-    none), origin [3] and cell_size [] f32 tensors, dims, cap and
-    n_active ints."""
+    [A, KC] int32 (-1 empty), cand_rank [A, KC] int16 (`LaneRanked`),
+    lut [C + 2] int32 (cell -> slot, -1 none), origin [3] and cell_size
+    [] f32 tensors, dims, cap and n_active ints."""
 
     def __init__(self, cand, cand_idx, lut, origin, cell_size,
                  dims: Tuple[int, int, int], cap: int, n_active: int):
         self.cand = cand
         self.cand_idx = cand_idx
+        self._keep_rank(cand_idx)
         self.lut = lut
         self.origin = origin
         self.cell_size = cell_size
@@ -75,9 +76,11 @@ def plan_cellgrid(points: np.ndarray, radius: float,
                   max_cells: int = 64_000_000, cap_limit: int = 128,
                   cap_percentile: float = 99.5,
                   mem_budget_bytes: int = 3 << 30) -> Optional[dict]:
-    """Host sizing, identical to the JAX package's: dims, origin, cap and
-    the active list (occupied cells dilated by one ring, in linear-id
-    order, padded to a multiple of 8 with the value C)."""
+    """Host sizing, as the JAX package's: dims, origin, cap and the
+    active list (occupied cells dilated by one ring, in linear-id
+    order, padded to a multiple of 8 with the value C). The budget
+    counts LANE_BYTES a candidate lane where the JAX package counts 16
+    (see `rollgrid.plan_rollgrid`)."""
     pts = np.asarray(points)
     finite = np.isfinite(pts).all(-1)
     if not finite.any() or radius <= 0:
@@ -112,7 +115,7 @@ def plan_cellgrid(points: np.ndarray, radius: float,
                        + nbr[:, 2]).astype(np.int64)
     n_active = _round_up(max(8, active.size), 8)
     kc = _round_up(27 * cap, 128)
-    if n_active * 4 * kc * 4 + n_cells * 4 > mem_budget_bytes:
+    if n_active * kc * LANE_BYTES + n_cells * 4 > mem_budget_bytes:
         return None
     active_pad = np.full(n_active, n_cells, np.int64)
     active_pad[:active.size] = active
@@ -187,5 +190,5 @@ def query_nn_cellgrid(grid: CellGrid, queries, radius, query_mask=None,
     none). Queries in inactive cells, outside the grid or past a slot's
     qcap (default: the grid's cap) get -1."""
     q_soa, q_index = bin_queries(grid, queries, query_mask, qcap)
-    return reduce_and_scatter(q_soa, q_index, grid.cand, grid.cand_idx,
-                              radius, queries.shape[0])
+    return reduce_and_scatter(q_soa, q_index, grid, radius,
+                              queries.shape[0])

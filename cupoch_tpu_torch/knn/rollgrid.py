@@ -36,16 +36,41 @@ OFFSETS = tuple((dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
                 for dz in (-1, 0, 1))
 
 
-class RollGrid:
+# bytes a candidate lane of a roll or cell grid holds on the device: 3
+# f32 coordinates, the int32 index and the int16 lane rank
+LANE_BYTES = 18
+
+
+class LaneRanked:
+    """The lane rank kernel 4 stages a row in, kept beside `cand_idx`."""
+
+    def _keep_rank(self, cand_idx):
+        # a grid on the card ranks its lanes at once, where kernel 4 will
+        # need them; elsewhere only on first use (the plain version never
+        # reads the rank)
+        self._cand_rank = rollgrid_nn.lane_rank(cand_idx) \
+            if cand_idx.is_cuda else None
+
+    @property
+    def cand_rank(self):
+        """[C, KC] int16 `rollgrid_nn.lane_rank(cand_idx)`."""
+        if self._cand_rank is None:
+            self._cand_rank = rollgrid_nn.lane_rank(self.cand_idx)
+        return self._cand_rank
+
+
+class RollGrid(LaneRanked):
     """The built target grid: cand [C, 3, KC] f32 (SoA neighbourhood
     coordinates, 3e18 empty), cand_idx [C, KC] int32 (original indices,
-    -1 empty), origin [3] and cell_size [] f32 tensors (ghost shell
-    included), dims and cap ints."""
+    -1 empty), cand_rank [C, KC] int16 (`LaneRanked`), origin [3] and
+    cell_size [] f32 tensors (ghost shell included), dims and cap
+    ints."""
 
     def __init__(self, cand, cand_idx, origin, cell_size,
                  dims: Tuple[int, int, int], cap: int):
         self.cand = cand
         self.cand_idx = cand_idx
+        self._keep_rank(cand_idx)
         self.origin = origin
         self.cell_size = cell_size
         self.dims = tuple(int(d) for d in dims)
@@ -70,12 +95,14 @@ def plan_rollgrid(points: np.ndarray, radius: float,
                   max_cells: int = 2_000_000, cap_limit: int = 128,
                   cap_percentile: float = 99.5,
                   mem_budget_bytes: int = 3 << 30) -> Optional[dict]:
-    """Host sizing, identical to the JAX package's: dims (ghost shell
-    included, each rounded up to even), origin, cap (the
-    `cap_percentile` of the occupied cells' counts, rounded up to 8).
-    None when a dense grid does not suit the cloud (degenerate extent,
-    too many cells, a cap above `cap_limit`, or a neighbourhood tensor
-    above `mem_budget_bytes`)."""
+    """Host sizing, as the JAX package's: dims (ghost shell included,
+    each rounded up to even), origin, cap (the `cap_percentile` of the
+    occupied cells' counts, rounded up to 8). None when a dense grid
+    does not suit the cloud (degenerate extent, too many cells, a cap
+    above `cap_limit`, or a neighbourhood tensor above
+    `mem_budget_bytes`). The budget counts LANE_BYTES a lane where the
+    JAX package counts 16 (it keeps no lane rank), so a grid within a
+    ninth of the budget is refused here and accepted there."""
     pts = np.asarray(points)
     finite = np.isfinite(pts).all(-1)
     if not finite.any():
@@ -102,7 +129,7 @@ def plan_rollgrid(points: np.ndarray, radius: float,
         return None
     cap = max(8, _round_up(cap, 8))
     kc = _round_up(27 * cap, 128)
-    if n_cells * 4 * kc * 4 > mem_budget_bytes:
+    if n_cells * kc * LANE_BYTES > mem_budget_bytes:
         return None
     origin = (lo - cell).astype(np.float32)
     return {"dims": dims, "origin": origin, "cap": cap,
@@ -178,11 +205,13 @@ def _bin_query_soa(queries, keys, n_bins: int, qcap: int):
     return soa.transpose(0, 1).contiguous(), q_index
 
 
-def reduce_and_scatter(q_soa, q_index, cand, cand_idx, radius, Q: int):
-    """Kernel 4 over the binned queries, then the results back to query
-    order: (index [Q] int32 or -1, dist2 [Q], inf for none)."""
+def reduce_and_scatter(q_soa, q_index, grid, radius, Q: int):
+    """Kernel 4 over the binned queries against `grid` (a RollGrid or a
+    CellGrid), then the results back to query order: (index [Q] int32
+    or -1, dist2 [Q], inf for none)."""
     r2 = torch.tensor(float(radius), dtype=torch.float32) ** 2
-    bidx, bd2 = rollgrid_nn.nn_reduce(q_soa, cand, cand_idx, r2)
+    bidx, bd2 = rollgrid_nn.nn_reduce(q_soa, grid.cand, grid.cand_idx, r2,
+                                      grid.cand_rank)
     return (scatter_to_source(q_index, bidx, Q, INVALID_INDEX),
             scatter_to_source(q_index, bd2, Q, float("inf")))
 
@@ -201,5 +230,5 @@ def query_nn_rollgrid(grid: RollGrid, queries, radius, query_mask=None,
     """1-NN within `radius`: (index [Q] int32 or -1, dist2 [Q], inf for
     none). Queries past a cell's qcap (default: the grid's cap) get -1."""
     q_soa, q_index = bin_queries(grid, queries, query_mask, qcap)
-    return reduce_and_scatter(q_soa, q_index, grid.cand, grid.cand_idx,
-                              radius, queries.shape[0])
+    return reduce_and_scatter(q_soa, q_index, grid, radius,
+                              queries.shape[0])

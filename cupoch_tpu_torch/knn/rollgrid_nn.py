@@ -15,6 +15,11 @@ Both compute, in f32 with every operation rounded on its own,
 then bd2 = min over all k, and among the lanes with d2 <= bd2 and
 d2 <= r^2 the smallest candidate index; ok = bd2 <= r^2 gives
 (index, bd2), else (-1, inf). So the two agree bit for bit.
+
+The kernel stages each row in ascending candidate-index order, real
+lanes first, so a strict `<` keeps the smallest index of a tie; the
+order comes from `lane_rank`, which every grid keeps beside its
+candidates (`cand_rank`), computed once.
 """
 from __future__ import annotations
 
@@ -32,6 +37,29 @@ launches = 0
 # bytes of one [cells, qcap, KC] f32 distance block `nn_reduce_plain`
 # holds at once
 _PLAIN_CHUNK_BYTES = 1 << 28
+# lanes `lane_rank` sorts at once
+_RANK_CHUNK_LANES = 1 << 24
+
+
+def lane_rank(cand_idx: torch.Tensor) -> torch.Tensor:
+    """[C, KC] int16: each lane's position when its row is ordered by
+    candidate index, the real lanes (index >= 0) first in ascending
+    index and the empty ones (-1) after them. Kernel 4 stages a row in
+    this order; the plain version does not need it. Rows are sorted a
+    chunk at a time, so the sort's temporaries stay near
+    `_RANK_CHUNK_LANES` lanes (8 bytes each) whatever the grid's size."""
+    C, KC = cand_idx.shape
+    if KC >= 1 << 15:
+        raise ValueError(f"lane_rank takes rows under 32768 lanes, not {KC}")
+    rank = torch.empty((C, KC), dtype=torch.int16, device=cand_idx.device)
+    pos = torch.arange(KC, dtype=torch.int16, device=cand_idx.device)
+    step = max(1, _RANK_CHUNK_LANES // max(KC, 1))
+    for c0 in range(0, C, step):
+        ci = cand_idx[c0:c0 + step]
+        key = torch.where(ci < 0, torch.iinfo(torch.int32).max, ci)
+        order = torch.argsort(key, dim=1, stable=True)
+        rank[c0:c0 + step].scatter_(1, order, pos.expand_as(order))
+    return rank
 
 
 def _check(q_soa, cand, cidx):
@@ -52,13 +80,15 @@ def _check(q_soa, cand, cidx):
 
 
 def nn_reduce(q_soa: torch.Tensor, cand: torch.Tensor, cidx: torch.Tensor,
-              r2) -> tuple:
+              r2, rank=None) -> tuple:
     """(idx [C, qcap] int32, -1 none; d2 [C, qcap] f32, inf none).
 
     q_soa [C, 3, qcap] f32 binned queries (empty slots hold 1e18 in
     every coordinate), cand [C, 3, KC] f32 candidates (empty: 3e18),
     cidx [C, KC] int32 candidate indices, r2 the f32 squared radius (a
-    float or a 0-d tensor on the host)."""
+    float or a 0-d tensor on the host), rank [C, KC] int16 the grid's
+    `lane_rank(cidx)` (the kernel needs it; the plain version ignores
+    it)."""
     global launches
     _check(q_soa, cand, cidx)
     r2 = float(torch.as_tensor(r2, dtype=torch.float32))
@@ -70,9 +100,15 @@ def nn_reduce(q_soa: torch.Tensor, cand: torch.Tensor, cidx: torch.Tensor,
         return nn_reduce_plain(q_soa, cand, cidx, r2)
     if dev.type != "cuda":
         raise ValueError(f"nn reduce runs on cuda or cpu, not {dev}")
+    if rank is None or rank.dtype != torch.int16 \
+            or rank.shape != cidx.shape or rank.device != dev \
+            or not rank.is_contiguous():
+        raise ValueError("the kernel needs the grid's lane rank: a "
+                         "contiguous int16 tensor shaped as cidx, on its "
+                         "device (lane_rank(cidx))")
     C, _, qcap = q_soa.shape
     fn = nvcc.load("rollgrid_nn").rollgrid_nn_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_float] \
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_float] \
         + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     idx = torch.empty((C, qcap), dtype=torch.int32, device=dev)
@@ -80,12 +116,26 @@ def nn_reduce(q_soa: torch.Tensor, cand: torch.Tensor, cidx: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q_soa.data_ptr(), cand.data_ptr(), cidx.data_ptr(),
-                 idx.data_ptr(), d2.data_ptr(), r2, C, qcap, cand.shape[2],
-                 stream)
+                 rank.data_ptr(), idx.data_ptr(), d2.data_ptr(), r2, C, qcap,
+                 cand.shape[2], stream)
     if err != 0:
         raise RuntimeError(f"rollgrid_nn launch failed: CUDA error {err}")
     launches += 1
     return idx, d2
+
+
+def occupancy(qcap: int, KC: int) -> tuple:
+    """(blocks an SM holds at once, warps a block) of the kernel that
+    `nn_reduce` launches at these shapes, as the CUDA runtime reports
+    them on the current card."""
+    fn = nvcc.load("rollgrid_nn").rollgrid_nn_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    warps = ctypes.c_int(0)
+    blocks = fn(qcap, KC, ctypes.byref(warps))
+    if blocks < 0:
+        raise RuntimeError(f"rollgrid_nn occupancy: CUDA error {-blocks}")
+    return blocks, warps.value
 
 
 def nn_reduce_plain(q_soa: torch.Tensor, cand: torch.Tensor,

@@ -88,6 +88,20 @@ def gmm_pass(grid: RunGrid, qsoa, qidx, params):
     return tuple(out.unbind(0))
 
 
+def occupancy(qcap: int) -> tuple:
+    """(blocks an SM holds at once, warps a block) of the kernel that
+    `gmm_pass` launches at this qcap, as the CUDA runtime reports them
+    on the current card."""
+    fn = nvcc.load("rungrid_gmm").rungrid_gmm_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    warps = ctypes.c_int(0)
+    blocks = fn(qcap, ctypes.byref(warps))
+    if blocks < 0:
+        raise RuntimeError(f"rungrid_gmm occupancy: CUDA error {-blocks}")
+    return blocks, warps.value
+
+
 def gmm_plain(grid: RunGrid, qsoa, qidx, params):
     """Plain PyTorch version of the moments pass (every lane, no window
     gating), through chunks of cells."""

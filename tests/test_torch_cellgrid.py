@@ -20,6 +20,7 @@ import torch
 from cupoch_tpu.knn import cellgrid as jcg
 from cupoch_tpu.knn import rollgrid as jrg
 from cupoch_tpu_torch.knn import cellgrid as tcg
+from test_torch_rollgrid import _assert_rank_orders_rows
 
 R = 0.01
 ULPS = 2
@@ -63,6 +64,23 @@ def test_torch_cellgrid_plan_identical(rng):
     # the active list is padded to a multiple of 8 with the value C
     C = int(np.prod(pt["dims"]))
     assert pt["n_active"] % 8 == 0 and (pt["active"] <= C).all()
+
+
+@pytest.mark.parametrize("lane_bytes, port_accepts", [(17, False),
+                                                     (18, True)])
+def test_torch_cellgrid_plan_budget_counts_lane_rank(rng, lane_bytes,
+                                                     port_accepts):
+    """The cell plan's budget counts the port's 18 bytes a lane (the
+    JAX package counts 16), as the roll plan's does."""
+    pts = _two_cubes(rng)
+    pj = jcg.plan_cellgrid(pts, R)
+    kc = -(-27 * pj["cap"] // 128) * 128
+    budget = pj["n_active"] * kc * lane_bytes + int(np.prod(pj["dims"])) * 4
+    assert jcg.plan_cellgrid(pts, R, mem_budget_bytes=budget) is not None
+    pt = tcg.plan_cellgrid(pts, R, mem_budget_bytes=budget)
+    assert (pt is not None) == port_accepts
+    if port_accepts:
+        np.testing.assert_array_equal(pt["active"], pj["active"])
 
 
 def test_torch_cellgrid_build_matches_jax(rng):
@@ -119,6 +137,30 @@ def test_torch_cellgrid_state_conversion(rng):
     for x, y in zip(tcg.query_nn_cellgrid(gc, q, R),
                     tcg.query_nn_cellgrid(gt, q, R)):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("source", ["build", "from_numpy"])
+def test_torch_cellgrid_lane_rank_orders_rows(rng, source):
+    """The lane rank kept beside the cell grid (kernel 4's staging
+    order: real lanes first, ascending candidate index) for the port's
+    build and for a JAX grid converted with `from_numpy`; queries still
+    agree with the JAX package (winners on >= 99.9%, distances within 2
+    ulp)."""
+    pts = _two_cubes(rng, 4096)
+    plan, gj, gt = _builds(pts)
+    if source == "from_numpy":
+        gt = tcg.CellGrid.from_numpy(
+            np.asarray(gj.cand), np.asarray(gj.cand_idx),
+            np.asarray(gj.lut), np.asarray(gj.origin),
+            np.asarray(gj.cell_size), gj.dims, gj.cap, gj.n_active,
+            device="cpu")
+    _assert_rank_orders_rows(gt)
+    q = pts[::5] + np.float32(0.002)
+    ij, dj = jcg.query_nn_cellgrid(gj, jnp.asarray(q), R)
+    it, dt = tcg.query_nn_cellgrid(gt, torch.as_tensor(q), R)
+    ij, dj, it, dt = np.asarray(ij), np.asarray(dj), it.numpy(), dt.numpy()
+    assert (ij == it).mean() >= 0.999
+    _assert_d2_close(dj, dt)
 
 
 def test_torch_cellgrid_masked_rows_never_match(rng):

@@ -194,6 +194,76 @@ def test_torch_rollgrid_state_conversion(rng):
         assert torch.equal(x, y)
 
 
+def _assert_rank_orders_rows(grid):
+    """cand_rank puts each row in the order kernel 4 stages it: a
+    permutation of the row's lanes, the real lanes (index >= 0) first in
+    ascending candidate index, the empty lanes after them."""
+    ci = grid.cand_idx.numpy()
+    rank = grid.cand_rank.numpy().astype(np.int64)
+    assert grid.cand_rank.dtype == torch.int16 and rank.shape == ci.shape
+    C, KC = ci.shape
+    np.testing.assert_array_equal(np.sort(rank, 1),
+                                  np.broadcast_to(np.arange(KC), (C, KC)))
+    ordered = np.empty_like(ci)
+    np.put_along_axis(ordered, rank, ci, 1)
+    n_real = (ci >= 0).sum(1)
+    real = np.arange(KC)[None, :] < n_real[:, None]
+    np.testing.assert_array_equal(ordered >= 0, real)
+    step = np.diff(ordered, axis=1)
+    assert (step[real[:, 1:]] > 0).all()
+
+
+@pytest.mark.parametrize("source", ["build", "from_numpy"])
+def test_torch_rollgrid_lane_rank_orders_rows(rng, source):
+    """The lane rank kept beside the grid, for the port's build and for
+    a JAX grid converted with `from_numpy`; the grid still answers
+    queries as the JAX package does (winners on >= 99.9%, distances
+    within 2 ulp, as test_torch_query_nn_rollgrid_matches_jax)."""
+    tgt = _cloud(rng, 3000)
+    q = _cloud(rng, 1000)
+    gj, gt = _builds(tgt, 0.07)
+    if source == "from_numpy":
+        gt = trg.RollGrid.from_numpy(
+            np.asarray(gj.cand), np.asarray(gj.cand_idx),
+            np.asarray(gj.origin), np.asarray(gj.cell_size), gj.dims,
+            gj.cap, device="cpu")
+    _assert_rank_orders_rows(gt)
+    ij, dj, it, dt = _query_both(gj, gt, q, 0.07)
+    assert (ij == it).mean() >= 0.999
+    _assert_d2_close(dj, dt)
+
+
+def test_torch_lane_rank_chunks_and_waits_off_the_card(rng, monkeypatch):
+    """A grid on the CPU ranks its lanes only when asked (the plain
+    reduce never reads the rank), and a rank sorted a few rows at a time
+    equals one sorted at once."""
+    gt = _builds(_cloud(rng, 3000), 0.07)[1]
+    assert gt._cand_rank is None
+    whole = gt.cand_rank
+    assert gt.cand_rank is whole
+    monkeypatch.setattr(rollgrid_nn, "_RANK_CHUNK_LANES",
+                        3 * gt.cand_idx.shape[1] + 5)
+    assert torch.equal(rollgrid_nn.lane_rank(gt.cand_idx), whole)
+
+
+@pytest.mark.parametrize("lane_bytes, port_accepts", [(17, False),
+                                                     (18, True)])
+def test_torch_rollgrid_plan_budget_counts_lane_rank(rng, lane_bytes,
+                                                     port_accepts):
+    """The plan's memory budget counts the port's 18 bytes a lane (the
+    JAX package counts 16): a budget of 17 bytes a lane passes there
+    and not here; at 18 both plans agree."""
+    pts = _cloud(rng, 6000)
+    pj = jrg.plan_rollgrid(pts, 0.07)
+    kc = -(-27 * pj["cap"] // 128) * 128
+    budget = int(np.prod(pj["dims"])) * kc * lane_bytes
+    assert jrg.plan_rollgrid(pts, 0.07, mem_budget_bytes=budget) is not None
+    pt = trg.plan_rollgrid(pts, 0.07, mem_budget_bytes=budget)
+    assert (pt is not None) == port_accepts
+    if port_accepts:
+        assert pt["dims"] == pj["dims"] and pt["cap"] == pj["cap"]
+
+
 def test_torch_nn_reduce_checks_inputs(rng):
     """The wrapper refuses what the kernel does not take, runs the plain
     version on CPU tensors and counts no launch there."""

@@ -10,16 +10,22 @@ Phases, each printed on its own line:
   2. build: compiles every kernel under cupoch_tpu_torch/csrc with nvcc,
      one process per source, all at once;
   3. kernels, each against its plain PyTorch version on the same inputs,
-     with times and the roofline bound (and for kernels 3 and 4 their
-     occupancy, ptxas registers and a computed issue ceiling):
+     with times, the roofline bound, the occupancy, the ptxas registers
+     and a computed issue ceiling:
      - the pooled-grid slot kernel at the headline grid (1M points in
        [0,2]^3, radius 0.05), in the Gauss-Newton configuration
-       (identity pose) and in the exact one (the true pose);
+       (identity pose) and in the exact one (the true pose), and on
+       built edge cases (`slot_edge_case`: a cell of 100 queries, cells
+       of 1-33, equal keys, a row without a real slot, tag -1 lanes);
      - the run-grid fused kernel in correspondence mode at the plan
        `evaluate_registration` makes for the headline pair, and in
        Gauss-Newton mode for point-to-point, point-to-plane and
        symmetric at the plan of the run-grid ICP fallback (1M points in
-       [0,1.4]^3, whose pool plan is rejected);
+       [0,1.4]^3, whose pool plan is rejected), with the lanes it scans
+       beside those its queries need; both modes on built edge cases
+       (`fused_edge_case`: exact ties across windows, threads and within
+       a thread, near-equal |e| at a gate, a cell larger than a pass,
+       rows without a lane or a query);
      - the run-grid Gaussian-moment kernel at the FilterReg plan (the
        geometry of tests/test_filterreg.py scaled to 1M points), and on
        two queries of one cell whose |e| differ in their last bits, with
@@ -78,6 +84,12 @@ ISSUE_PER_CLOCK_SM = 4 * 32
 # operations, the compare and 2 selects
 K3_INSTR_PER_VISIT = 17
 K4_INSTR_PER_VISIT = 11
+# kernel 1: 3 FMUL and 4 FADD rounded apart, the LOP3 that packs the key,
+# the IMNMX that keeps the least; kernel 2: 6 for the score, the strict
+# `<`, the tie flag (2) and two selects of (score, lane), and half a
+# shared-memory read
+K1_INSTR_PER_VISIT = 9
+K2_INSTR_PER_VISIT = 12
 
 N_POINTS = 1_000_000
 RADIUS = 0.05
@@ -239,15 +251,13 @@ def _scores(torch, grid, qpool, params, slot):
     return s, quantum
 
 
-def check_slot_kernel(torch, poolgrid, poolgrid_slot, grid, qpool, params,
-                      mode):
-    """Kernel against slot_plain on the same inputs; returns its record."""
-    got = poolgrid_slot.slot_pass(grid, qpool, params)
-    want = poolgrid_slot.slot_plain(grid, qpool, params)
+def slot_gap(torch, grid, qpool, params, got, want, mode):
+    """(share of valid queries whose slot equals slot_plain's, largest
+    score gap) of slots `got` against `want`; raises unless >= AGREE_MIN
+    are equal and every score gap lies within a key quantum."""
     torch.cuda.synchronize()
     valid = qpool[:, 3] >= 0
-    n_valid = int(valid.sum())
-    same = float(((got == want) & valid).sum()) / max(n_valid, 1)
+    same = float(((got == want) & valid).sum()) / max(int(valid.sum()), 1)
     sk, quantum = _scores(torch, grid, qpool, params, got)
     sp, _ = _scores(torch, grid, qpool, params, want)
     err = torch.where(valid, (sk - sp).abs(), 0.0)
@@ -257,6 +267,31 @@ def check_slot_kernel(torch, poolgrid, poolgrid_slot, grid, qpool, params,
         raise AssertionError(
             f"slot kernel ({mode}) disagrees with slot_plain: {same:.6f} "
             f"equal, max score gap {max_err} vs the key quantum")
+    return same, max_err
+
+
+def _slot_scanned(torch, grid, qpool):
+    """(query, slot) visits kernel 1 makes: each cell's queries in groups
+    of 8, the last of r < 8 scored as 8 when r > 4 and as 4 otherwise,
+    each over the row's KC slots."""
+    tag = qpool[:, 3]
+    valid = tag >= 0
+    rows = torch.arange(tag.shape[0], device=tag.device)[:, None] \
+        * grid.tile + tag.clamp(min=0).long()
+    n = torch.bincount(rows[valid], minlength=grid.table.shape[0])
+    r = n % 8
+    slots = n // 8 * 8 + torch.where(r > 4, 8, torch.where(r > 0, 4, 0))
+    return int(slots.sum()) * grid.kc
+
+
+def check_slot_kernel(torch, poolgrid_slot, nvcc, grid, qpool, params, mode,
+                      card_clock):
+    """Kernel 1 against slot_plain on the same inputs; returns its record."""
+    same, max_err = slot_gap(
+        torch, grid, qpool, params, poolgrid_slot.slot_pass(grid, qpool,
+                                                            params),
+        poolgrid_slot.slot_plain(grid, qpool, params), mode)
+    n_valid = int((qpool[:, 3] >= 0).sum())
     kernel_ms = _time_ms(
         torch, lambda: poolgrid_slot.slot_pass(grid, qpool, params),
         TIMED_LAUNCHES)
@@ -270,6 +305,10 @@ def check_slot_kernel(torch, poolgrid, poolgrid_slot, grid, qpool, params,
     n_bytes = grid.table.numel() * 4 + 7 * G * QP * 4 + G * QP * 4
     n_ops = n_valid * 27 * grid.cap * 7
     bound_ms, bound_by = _bound(n_bytes, n_ops)
+    scanned = _slot_scanned(torch, grid, qpool)
+    issue_ms = _issue_ms(scanned, K1_INSTR_PER_VISIT, card_clock)
+    build = _kernel_build(nvcc, "poolgrid_slot",
+                          poolgrid_slot.occupancy(QP, grid.kc))
     rec = {"mode": mode, "equal": same, "max_abs_err": max_err,
            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "bytes": n_bytes, "ops": n_ops,
@@ -278,9 +317,120 @@ def check_slot_kernel(torch, poolgrid, poolgrid_slot, grid, qpool, params,
           f"valid queries, max score gap {max_err}; kernel {kernel_ms:.4f} "
           f"ms, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms by "
           f"{bound_by} ({n_bytes / 1e9:.3f} GB, {n_ops / 1e9:.2f} G ops); "
-          f"library_ms null: no single PyTorch call computes a per-cell "
-          f"packed-key argmin over a gathered candidate row")
+          f"issue ceiling {issue_ms:.4f} ms (computed: the kernel makes "
+          f"{scanned / 1e9:.3f} G visits at {K1_INSTR_PER_VISIT} "
+          f"instructions; the queries need {n_valid * grid.kc / 1e9:.3f} "
+          f"G); {build}; library_ms null: no single PyTorch call computes "
+          f"a per-cell packed-key argmin over a gathered candidate row")
     return rec
+
+
+def headline_pool(np, torch, poolgrid, fused_icp, est, dev):
+    """The headline pair on `dev` and its pooled-grid plan for `est`, as
+    the pooled paths make them: a dict of the clouds ("tgt", "tn",
+    "src", "T_true", and "tgt_d", "tn_d", "src_d" on the card), the
+    all-true "mask", "est_code", "plan" and "build", which builds the
+    grid."""
+    tgt, tn, src, T_true = _headline_clouds(np, N_POINTS)
+    h = {"tgt": tgt, "tn": tn, "src": src, "T_true": T_true,
+         "tgt_d": torch.as_tensor(tgt, device=dev),
+         "tn_d": torch.as_tensor(tn, device=dev),
+         "src_d": torch.as_tensor(src, device=dev),
+         "mask": torch.ones(N_POINTS, dtype=torch.bool, device=dev)}
+    attrs, est_code = fused_icp.make_target_attrs(est, h["tgt_d"],
+                                                  h["tn_d"])
+    plan = poolgrid.plan_poolgrid(tgt, RADIUS, query_points=src,
+                                  est=est_code)
+
+    def build():
+        return poolgrid.make_poolgrid(
+            h["tgt_d"], attrs, plan["origin"], plan["cell_size"],
+            plan["dims"], plan["cap"], plan["kc"], est=est_code,
+            tile=plan["tile"], mask=h["mask"],
+            active_cells=plan["active_cells"])
+
+    h.update(est_code=est_code, plan=plan, build=build)
+    return h
+
+
+def slot_inputs(np, torch, poolgrid, hp, grid):
+    """Kernel 1's inputs on the headline grid: (mode, qpool, params) in
+    the Gauss-Newton configuration (identity pose) and in the exact one
+    (the true pose)."""
+    r2 = torch.tensor(RADIUS, dtype=torch.float32) ** 2
+    for mode, T in (("gn", np.eye(4, dtype=np.float32)),
+                    ("exact", hp["T_true"])):
+        T = torch.as_tensor(T)
+        qpool, _, _ = poolgrid.bin_queries_pool(
+            hp["src_d"], T, grid.origin, grid.cell_size, grid.dims,
+            hp["plan"]["qp"], grid.tile, mask=hp["mask"],
+            cell_map=grid.cell_map, n_rank_pad=grid.n_tiles * grid.tile)
+        yield mode, qpool, poolgrid.make_params(T, r2, grid)
+
+
+def evaluate_input(np, torch, rungrid, hp):
+    """Kernel 2's correspondence input at the plan evaluate_registration
+    makes for the headline pair at the true pose (the grid built as it
+    builds it: no attributes, kc = 27 cap rounded up): (plan, grid,
+    qsoa, qidx, params)."""
+    T_true = hp["T_true"]
+    src_true = hp["src"] @ T_true[:3, :3].T + T_true[:3, 3]
+    eplan = rungrid.plan_rungrid(hp["tgt"], RADIUS, margin=0.0,
+                                 query_points=src_true, nch=0)
+    tgt_d, mask = hp["tgt_d"], hp["mask"]
+    egrid = rungrid.make_rungrid(
+        tgt_d, tgt_d.new_zeros((N_POINTS, 0)), eplan["origin"],
+        eplan["cell_size"], eplan["dims"], eplan["cap"], mask=mask)
+    src_true_d = torch.as_tensor(src_true, device=tgt_d.device)
+    qsoa, qidx = rungrid.bin_queries(
+        src_true_d, src_true_d, egrid.origin, egrid.cell_size, egrid.dims,
+        eplan["qcap"], mask=mask)
+    r2 = torch.tensor(RADIUS, dtype=torch.float32) ** 2
+    return eplan, egrid, qsoa, qidx, rungrid.make_params(torch.eye(4), r2,
+                                                         egrid)
+
+
+def fallback_cloud(np, torch, poolgrid, rungrid, est_code, dev):
+    """The [0,1.4]^3 cloud, whose pool plan is rejected, and its run
+    plan: a dict of the clouds ("tgt", "tn", "src", "T_true", and
+    "tgt_d", "tn_d", "src_d" and the source normals "sn_d" on the card)
+    and the "plan"."""
+    ftgt, ftn, fsrc, fT_true = _headline_clouds(np, N_POINTS,
+                                                side=FALLBACK_SIDE)
+    if poolgrid.plan_poolgrid(ftgt, RADIUS, query_points=fsrc,
+                              est=est_code) is not None:
+        raise AssertionError("the fallback cloud's pool plan was accepted")
+    fplan = rungrid.plan_rungrid(ftgt, RADIUS, query_points=fsrc, nch=4)
+    if fplan is None:
+        raise AssertionError("the fallback cloud's run plan was rejected")
+    return {"tgt": ftgt, "tn": ftn, "src": fsrc, "T_true": fT_true,
+            "tgt_d": torch.as_tensor(ftgt, device=dev),
+            "tn_d": torch.as_tensor(ftn, device=dev),
+            "src_d": torch.as_tensor(fsrc, device=dev),
+            "sn_d": torch.as_tensor(ftn @ fT_true[:3, :3], device=dev),
+            "plan": fplan}
+
+
+def fallback_inputs(torch, rungrid, fused_icp, ET, fb, mask):
+    """Kernel 2's Gauss-Newton inputs at the fallback plan: (estimator,
+    grid, qsoa, qidx, params) for point-to-point, point-to-plane and
+    symmetric."""
+    fplan = fb["plan"]
+    r2 = torch.tensor(RADIUS, dtype=torch.float32) ** 2
+    for est_type in (ET.PointToPoint, ET.PointToPlane, ET.SymmetricMethod):
+        fattrs, fcode = fused_icp.make_target_attrs(est_type, fb["tgt_d"],
+                                                    fb["tn_d"])
+        fgrid = rungrid.make_rungrid(
+            fb["tgt_d"], fattrs, fplan["origin"], fplan["cell_size"],
+            fplan["dims"], fplan["cap"], mask=mask, est=fcode,
+            kc=fplan["kc"])
+        sym = est_type == ET.SymmetricMethod
+        qsoa, qidx = rungrid.bin_queries(
+            fb["src_d"], fb["src_d"], fgrid.origin, fgrid.cell_size,
+            fgrid.dims, fplan["qcap"], extra=fb["sn_d"] if sym else None,
+            n_extra=3 if sym else 0, mask=mask)
+        yield est_type, fgrid, qsoa, qidx, rungrid.make_params(
+            torch.eye(4), r2, fgrid)
 
 
 def _rungrid_need(torch, rungrid, grid, qsoa, qidx, params, dist,
@@ -316,18 +466,71 @@ def _rungrid_need(torch, rungrid, grid, qsoa, qidx, params, dist,
     return n_bytes, lanes * ops_per_lane, lanes / max(n_valid, 1)
 
 
-def check_fused_corres(torch, rungrid, rungrid_fused, grid, qsoa, qidx,
-                       params):
-    """Kernel 2 in correspondence mode against fused_plain."""
-    d2k, nik = rungrid_fused.fused_query(grid, qsoa, qidx, params, 0, True)
-    d2p, nip = rungrid_fused.fused_plain(grid, qsoa, qidx, params, 0, True)
+def _fused_scanned(torch, rungrid, grid, qsoa, qidx, params):
+    """(query, lane) visits kernel 2 makes for this run's data: per cell
+    its valid queries sorted by |e|, 8 a warp. A query's gate is open at
+    the first window (if the row holds a real lane) and at window
+    w while sqrt(min(m + qn, r^2)) + |e| >= bounds[w], with m its least
+    score over the windows before w (the gate only closes as w grows); a
+    warp scans the windows up to its queries' last open one, for 8 query
+    slots (4 when it holds at most 4). The scores repeat the kernel's
+    rounding, so the count is the kernel's own."""
+    cp, _, qcap = qsoa.shape
+    KC, NW, W = grid.kc, grid.n_windows, rungrid.WINDOW
+    p = params
+    cen = rungrid.cell_centers(grid.dims, p[13:16], p[16], cp)
+    prefix = torch.isfinite(grid.bounds).sum(1).clamp(max=1)
+    w_idx = torch.arange(NW, device=qsoa.device)
+    pad = (-qcap) % 8
+    total = 0
+    step = max(1, (1 << 28) // (qcap * KC * 4))
+    for c0 in range(0, cp, step):
+        q = qsoa[c0:c0 + step]
+        c = grid.cand[c0:c0 + step]
+        cc = cen[c0:c0 + step]
+        n = q.shape[0]
+        e = [p[3 * i] * q[:, 0] + p[3 * i + 1] * q[:, 1]
+             + p[3 * i + 2] * q[:, 2] + p[9 + i] - cc[:, i, None]
+             for i in range(3)]
+        qn = e[0] * e[0] + e[1] * e[1] + e[2] * e[2]
+        v = c[:, 3, None, :] + e[0][..., None] * c[:, 0, None, :]
+        v = v + e[1][..., None] * c[:, 1, None, :]
+        v = v + e[2][..., None] * c[:, 2, None, :]
+        wmin = v.view(n, qcap, NW, W).amin(-1)
+        del v
+        before = torch.cat([torch.full_like(wmin[..., :1], float("inf")),
+                            wmin.cummin(-1).values[..., :-1]], -1)
+        bestd = torch.sqrt(torch.clamp(torch.minimum(
+            before + qn[..., None], p[12]), min=0.0))
+        dqc = torch.sqrt(qn)
+        closed = (bestd + dqc[..., None] < grid.bounds[c0:c0 + step, None]) \
+            & (w_idx >= prefix[c0:c0 + step, None, None])
+        own = torch.where(closed.any(-1), closed.int().argmax(-1), NW)
+        valid = qidx[c0:c0 + step] >= 0
+        order = torch.sort(torch.where(valid, dqc, float("inf")), dim=1,
+                           stable=True).indices
+        own = torch.nn.functional.pad(
+            torch.where(valid, own, 0).gather(1, order), (0, pad))
+        cnt = torch.nn.functional.pad(valid.gather(1, order).int(),
+                                      (0, pad))
+        cnt = cnt.view(n, -1, 8).sum(-1)
+        windows = own.view(n, -1, 8).amax(-1)
+        slots = torch.where(cnt > 4, 8, torch.where(cnt > 0, 4, 0))
+        total += int((windows * slots).sum()) * W
+    return total
+
+
+def fused_corres_gap(torch, d2k, nik, d2p, nip, qidx):
+    """(share of valid queries whose -index equals fused_plain's, largest
+    d2 gap) of the kernel's correspondences against the plain version's;
+    raises unless both agree on which queries found a candidate, >=
+    AGREE_MIN of the winners are equal and every d2 lies within 1 ulp."""
     torch.cuda.synchronize()
     valid = qidx >= 0
-    n_valid = int(valid.sum())
     if not torch.equal(torch.isfinite(d2k), torch.isfinite(d2p)):
         raise AssertionError("fused corres: kernel and plain disagree on "
                              "which queries found a candidate")
-    same = float(((nik == nip) & valid).sum()) / max(n_valid, 1)
+    same = float(((nik == nip) & valid).sum()) / max(int(valid.sum()), 1)
     fin = torch.isfinite(d2p)
     gap = torch.where(fin, (d2k - d2p).abs(), 0.0)
     ulp = torch.nextafter(d2p.abs(), torch.tensor(float("inf"),
@@ -338,38 +541,17 @@ def check_fused_corres(torch, rungrid, rungrid_fused, grid, qsoa, qidx,
     if same < AGREE_MIN or worst > 0:
         raise AssertionError(f"fused corres: winners equal on {same:.6f}, "
                              f"max d2 gap {max_err} beyond 1 ulp")
-    ms = _time_ms(torch, lambda: rungrid_fused.fused_query(
-        grid, qsoa, qidx, params, 0, True), TIMED_LAUNCHES)
-    plain_ms = _time_ms(torch, lambda: rungrid_fused.fused_plain(
-        grid, qsoa, qidx, params, 0, True), 3)
-    cp, _, qcap = qsoa.shape
-    n_bytes, n_ops, lanes = _rungrid_need(
-        torch, rungrid, grid, qsoa, qidx, params,
-        torch.sqrt(torch.minimum(d2p, params[12])), 1, 2 * cp * qcap * 4, 7)
-    bound_ms, bound_by = _bound(n_bytes, n_ops)
-    print(f"kernel[fused corres]: cells {cp} qcap {qcap} kc {grid.kc}; "
-          f"winners equal on {same:.6f} of {n_valid} valid queries, max d2 "
-          f"gap {max_err}; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
-          f"bound {bound_ms:.4f} ms by {bound_by} ({n_bytes / 1e9:.3f} GB, "
-          f"{n_ops / 1e9:.2f} G ops, {lanes:.0f} lanes a query); "
-          f"library_ms null: {NO_LIBRARY}")
-    return {"mode": "corres", "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "equal": same}
+    return same, max_err
 
 
-def check_fused_gn(torch, rungrid, rungrid_fused, fused_icp, est_type, grid,
-                   qsoa, qidx, params):
-    """Kernel 2 in Gauss-Newton mode against fused_plain: the count sums
-    equal, every other sum within GN_REL_TOL of its group's largest
-    magnitude, and the pose updates from both within 1e-5."""
-    est = grid.est
-    sk = rungrid_fused.fused_query(grid, qsoa, qidx, params, est, False)
-    sp = rungrid_fused.fused_plain(grid, qsoa, qidx, params, est, False)
-    sk, sp = sk.cpu(), sp.cpu()
-    if est == 1:    # Kabsch layout: count, sum t, sum p, sum t p^T, err
+def fused_gn_gap(fused_icp, est_type, sk, sp):
+    """(largest gap of a sum relative to its group's largest magnitude,
+    pose-update gap) of the kernel's GN sums `sk` against fused_plain's
+    `sp` (on the CPU); raises unless the counts are equal and the gaps
+    within GN_REL_TOL and 1e-5."""
+    if est_type.name == "PointToPoint":     # count, t, p, t p^T, err
         count, groups = 0, [(1, 4), (4, 7), (7, 16), (16, 17)]
-    else:           # JTJ, JTr, count, err
+    else:                                   # JTJ, JTr, count, err
         count, groups = 27, [(0, 21), (21, 27), (28, 29)]
     if sk[count] != sp[count] or sp[count] < 1:
         raise AssertionError(f"fused GN ({est_type.name}): counts "
@@ -384,6 +566,62 @@ def check_fused_gn(torch, rungrid, rungrid_fused, fused_icp, est_type, grid,
         raise AssertionError(f"fused GN ({est_type.name}): sums differ by "
                              f"{rel} of their group, pose updates by "
                              f"{d_pose}")
+    return rel, d_pose
+
+
+def _fused_issue(torch, rungrid, rungrid_fused, nvcc, grid, qsoa, qidx,
+                 params, n_ops, corres, card_clock):
+    """The text of kernel 2's computed issue ceiling at these inputs and
+    of its build (occupancy, ptxas)."""
+    scanned = _fused_scanned(torch, rungrid, grid, qsoa, qidx, params)
+    issue_ms = _issue_ms(scanned, K2_INSTR_PER_VISIT, card_clock)
+    build = _kernel_build(nvcc, "rungrid_fused", rungrid_fused.occupancy(
+        qsoa.shape[2], grid.attrp.shape[1], grid.est, corres))
+    return (f"issue ceiling {issue_ms:.4f} ms (computed: the kernel scans "
+            f"{scanned / 1e9:.3f} G visits at {K2_INSTR_PER_VISIT} "
+            f"instructions; the queries need {n_ops / 7 / 1e9:.3f} G); "
+            f"{build}")
+
+
+def check_fused_corres(torch, rungrid, rungrid_fused, nvcc, grid, qsoa,
+                       qidx, params, card_clock):
+    """Kernel 2 in correspondence mode against fused_plain."""
+    d2k, nik = rungrid_fused.fused_query(grid, qsoa, qidx, params, 0, True)
+    d2p, nip = rungrid_fused.fused_plain(grid, qsoa, qidx, params, 0, True)
+    same, max_err = fused_corres_gap(torch, d2k, nik, d2p, nip, qidx)
+    n_valid = int((qidx >= 0).sum())
+    ms = _time_ms(torch, lambda: rungrid_fused.fused_query(
+        grid, qsoa, qidx, params, 0, True), TIMED_LAUNCHES)
+    plain_ms = _time_ms(torch, lambda: rungrid_fused.fused_plain(
+        grid, qsoa, qidx, params, 0, True), 3)
+    cp, _, qcap = qsoa.shape
+    n_bytes, n_ops, lanes = _rungrid_need(
+        torch, rungrid, grid, qsoa, qidx, params,
+        torch.sqrt(torch.minimum(d2p, params[12])), 1, 2 * cp * qcap * 4, 7)
+    bound_ms, bound_by = _bound(n_bytes, n_ops)
+    issue = _fused_issue(torch, rungrid, rungrid_fused, nvcc, grid, qsoa,
+                         qidx, params, n_ops, True, card_clock)
+    print(f"kernel[fused corres]: cells {cp} qcap {qcap} kc {grid.kc}; "
+          f"winners equal on {same:.6f} of {n_valid} valid queries, max d2 "
+          f"gap {max_err}; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+          f"bound {bound_ms:.4f} ms by {bound_by} ({n_bytes / 1e9:.3f} GB, "
+          f"{n_ops / 1e9:.2f} G ops, {lanes:.0f} lanes a query); {issue}; "
+          f"library_ms null: {NO_LIBRARY}")
+    return {"mode": "corres", "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "equal": same}
+
+
+def check_fused_gn(torch, rungrid, rungrid_fused, fused_icp, nvcc, est_type,
+                   grid, qsoa, qidx, params, card_clock):
+    """Kernel 2 in Gauss-Newton mode against fused_plain: the count sums
+    equal, every other sum within GN_REL_TOL of its group's largest
+    magnitude, and the pose updates from both within 1e-5."""
+    est = grid.est
+    sk = rungrid_fused.fused_query(grid, qsoa, qidx, params, est, False)
+    sp = rungrid_fused.fused_plain(grid, qsoa, qidx, params, est, False)
+    sk, sp = sk.cpu(), sp.cpu()
+    rel, d_pose = fused_gn_gap(fused_icp, est_type, sk, sp)
     ms = _time_ms(torch, lambda: rungrid_fused.fused_query(
         grid, qsoa, qidx, params, est, False), TIMED_LAUNCHES)
     plain_ms = _time_ms(torch, lambda: rungrid_fused.fused_plain(
@@ -396,12 +634,15 @@ def check_fused_gn(torch, rungrid, rungrid_fused, fused_icp, est_type, grid,
         torch.sqrt(torch.minimum(d2, params[12])), grid.attrp.shape[1],
         rungrid.N_SUMS * 4, 7)
     bound_ms, bound_by = _bound(n_bytes, n_ops)
+    issue = _fused_issue(torch, rungrid, rungrid_fused, nvcc, grid, qsoa,
+                         qidx, params, n_ops, False, card_clock)
+    count = int(sp[0 if est == 1 else 27])
     print(f"kernel[fused gn {est_type.name}]: cells {cp} qcap {qcap} kc "
-          f"{grid.kc} P {grid.attrp.shape[1]}; count {int(sp[count])}, sums "
+          f"{grid.kc} P {grid.attrp.shape[1]}; count {count}, sums "
           f"within {rel:.2e} of their group, pose updates within "
           f"{d_pose:.2e}; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
           f"bound {bound_ms:.4f} ms by {bound_by} ({n_bytes / 1e9:.3f} GB, "
-          f"{n_ops / 1e9:.2f} G ops, {lanes:.0f} lanes a query); "
+          f"{n_ops / 1e9:.2f} G ops, {lanes:.0f} lanes a query); {issue}; "
           f"library_ms null: {NO_LIBRARY}")
     return {"mode": f"gn_{est_type.name}", "max_abs_err": float(
         (sk - sp).abs().max()), "rel_err": rel, "ms": ms,
@@ -516,6 +757,307 @@ def gmm_tie_case(np, torch, rungrid, dev):
                                  inv_2s2=float(f32(1) / (f32(2) * sigma
                                                          * sigma)))
     return grid, t(qsoa), t(qidx), params
+
+
+def slot_edge_case(np, seed=5):
+    """Kernel 1's built edge cases: one input of three supertiles of 32
+    cells, KC 256, QP 128, at the identity pose with key offset 16:
+    - "one_cell": supertile 0 holds 100 queries in one cell (13 groups
+      of 8, more than one pass of the block's 4 warps);
+    - "small_cells": supertile 1 holds cells of 1, 4, 5, 7, 8, 9, 16 and
+      33 queries among empty cells, its lanes shuffled;
+    - "equal_keys": the 9 queries of that supertile sit on a candidate
+      their row holds twice, at slots 4 and 9: the two keys are equal and
+      slot 4 must win;
+    - "empty_row": the 1-query cell of supertile 1 has a row without a
+      real slot: every key is equal and slot 0 must win;
+    - "empty_lanes": supertile 2 holds only tag -1 lanes (slot 0).
+    Candidates lie on a 1/4 lattice within 0.75 of the cell centre (200
+    of a row's slots; the rest empty, c' = 0 and |c|^2 = 3e18, as the
+    pooled grid's table holds them) and residuals on a 1/16 lattice, so
+    every real slot's score is exact in f32 and in the JAX mirror's bf16
+    products, and both order the keys alike. Returns numpy arrays
+    {"table" [96, 256, 4], "qpool" [3, 7, 128], "params" [32], "tile",
+    "kc", "cap", "parts": {name: (supertile, [QP] bool lanes)}}."""
+    f32 = np.float32
+    rng = np.random.default_rng(seed)
+    G, T, KC, QP, n_real = 3, 32, 256, 128, 200
+    lattice = np.stack(np.meshgrid(*[np.arange(-3, 4)] * 3, indexing="ij"),
+                       -1).reshape(-1, 3).astype(f32) / f32(4)
+    table = np.zeros((G * T, KC, 4), f32)
+    table[..., 3] = f32(3.0e18)
+    for r in range(G * T):
+        c = lattice[rng.choice(len(lattice), n_real, replace=False)]
+        table[r, :n_real, :3] = f32(-2) * c
+        table[r, :n_real, 3] = (c * c).sum(-1)
+    qpool = np.zeros((G, 7, QP), f32)
+    qpool[:, 3] = -1.0
+
+    def place(g, cell, lanes, e):
+        cc = np.array([cell % 4, cell // 4 % 4, cell // 16], f32) + f32(0.5)
+        qpool[g, 0:3, lanes] = cc + e          # indexed as [lanes, 3]
+        qpool[g, 3, lanes] = cell
+        qpool[g, 4:7, lanes] = cc
+
+    def residuals(n):
+        return rng.integers(-8, 9, size=(n, 3)).astype(f32) / f32(16)
+
+    parts = {}
+    lanes = rng.permutation(QP)
+    place(0, 7, lanes[:100], residuals(100))
+    parts["one_cell"] = (0, qpool[0, 3] >= 0)
+    lanes = rng.permutation(QP)
+    at = 0
+    for cell, n in ((0, 1), (3, 4), (4, 5), (10, 7), (11, 8), (17, 9),
+                    (20, 16), (31, 33)):
+        mine = lanes[at:at + n]
+        at += n
+        if n == 1:
+            table[T + cell, :, :3] = 0.0
+            table[T + cell, :, 3] = f32(3.0e18)
+            parts["empty_row"] = (1, np.isin(np.arange(QP), mine))
+        if n == 9:
+            # a point the row holds at slots 4 and 9 alone
+            p = lattice[rng.integers(len(lattice))]
+            row = table[T + cell]
+            c = list(row[:n_real, :3] / f32(-2))
+            c = [x for x in c if not (x == p).all()]
+            c.insert(4, p)
+            c.insert(9, p)
+            c = np.asarray(c, f32)
+            row[:, :3], row[:, 3] = 0.0, f32(3.0e18)
+            row[:len(c), :3], row[:len(c), 3] = f32(-2) * c, (c * c).sum(-1)
+            place(1, cell, mine, np.repeat(p[None], n, 0))
+            parts["equal_keys"] = (1, np.isin(np.arange(QP), mine))
+        else:
+            place(1, cell, mine, residuals(n))
+    parts["small_cells"] = (1, qpool[1, 3] >= 0)
+    parts["empty_lanes"] = (2, np.ones(QP, bool))
+    params = np.zeros(32, f32)
+    params[[0, 4, 8]] = 1.0
+    params[12] = 0.01
+    params[13] = 16.0
+    return {"table": table, "qpool": qpool, "params": params, "tile": T,
+            "kc": KC, "cap": 8, "parts": parts}
+
+
+def slot_edge_grid(torch, poolgrid, case, dev):
+    """The port's PoolGrid and the query tensors of `slot_edge_case`:
+    (grid, qpool, params) on `dev`."""
+    t = lambda a: torch.as_tensor(a, device=dev)
+    grid = poolgrid.PoolGrid(
+        t(case["table"]), torch.zeros((1, 4), device=dev),
+        torch.zeros(3, device=dev), torch.ones((), device=dev),
+        t(case["params"][13]), (4, 4, 2 * case["qpool"].shape[0]),
+        case["cap"], case["kc"], poolgrid.EST_NONE, case["tile"])
+    return grid, t(case["qpool"]), t(case["params"])
+
+
+def check_slot_edges(torch, poolgrid, poolgrid_slot, np, dev):
+    """Kernel 1 on `slot_edge_case` against slot_plain: every slot equal
+    (valid lanes and the slot 0 of tag -1 lanes), and slot 4 on the
+    equal keys."""
+    case = slot_edge_case(np)
+    grid, qpool, params = slot_edge_grid(torch, poolgrid, case, dev)
+    got = poolgrid_slot.slot_pass(grid, qpool, params)
+    want = poolgrid_slot.slot_plain(grid, qpool, params)
+    torch.cuda.synchronize()
+    g, lanes = case["parts"]["equal_keys"]
+    tie = got[g][torch.as_tensor(lanes, device=dev)]
+    g0, lanes0 = case["parts"]["empty_row"]
+    tie0 = got[g0][torch.as_tensor(lanes0, device=dev)]
+    if not torch.equal(got, want) or not bool((tie == 4).all()) \
+            or not bool((tie0 == 0).all()):
+        bad = {name: int((got[gi] != want[gi])[torch.as_tensor(
+            m, device=dev)].sum()) for name, (gi, m) in
+            case["parts"].items()}
+        raise AssertionError(f"slot kernel on the built cases: slots that "
+                             f"differ from slot_plain {bad}; equal keys "
+                             f"gave {tie.tolist()} (slot 4 must win), the "
+                             f"row without a real slot {tie0.tolist()} (0)")
+    print(f"kernel[slot built cases]: {', '.join(case['parts'])}: every "
+          f"slot equal to slot_plain, slot 4 wins the equal keys, slot 0 "
+          f"the row without a real slot")
+
+
+def fused_edge_case(np, seed=6):
+    """Kernel 2's built edge cases: one run grid of 8 cells (dims 2^3,
+    origin -0.5, cell 1, so cell 0's centre is the origin and every other
+    centre coordinate is 0 or 1), KC 384 (3 windows), qcap 24, r = 0.1,
+    PT2PL words (P 2, fields u * 2^-14 - 1):
+    - cell 0, "gate": queries A and B on the x axis, |e| 800 ulp apart
+      (B, the farther, in slot 0), 256 lanes on the far side (none within
+      r of either) and lane 256 (window 2) at |c| = L on their side, with
+      r + |e_A| < L <= r + |e_B|: only B's gate reaches it, and it lies
+      within r of B alone;
+    - cell 1, "tie_cross": query T1 at e = (1/8, 0, 0) scores the lanes
+      c = (1/16, 0, 0) (window 0) and (3/16, 0, 0) (window 1, another
+      thread of its group) exactly alike; "tie_thread": query T2 sits on
+      a point the row holds twice (lanes 1 and 2, one thread). The tied
+      lanes differ in index and in both words; every value is dyadic, so
+      the scores are exact;
+    - cell 2, "pass": 20 valid queries (more than a pass of 16) among 300
+      random candidates within 0.6 of the centre;
+    - cell 3: a valid query and a row without a real lane; cell 4: a row
+      and no query; cells 5-7 empty.
+    Returns numpy arrays {"cand", "attrp", "negidx", "bounds",
+    "pack_lohi", "origin", "cell_size", "dims", "kc", "qsoa" [8, 3, 24],
+    "qidx" [8, 24], "r2", "ties": {name: (cell, slot, lanes)}}."""
+    f32 = np.float32
+    rng = np.random.default_rng(seed)
+    Cp, KC, qcap, W = 8, 384, 24, 128
+    dims = (2, 2, 2)
+    big = f32(3.0e18)
+    cand = np.zeros((Cp, 4, KC), f32)
+    cand[:, 3] = big
+    negidx = np.ones((Cp, KC), f32)
+    attrp = np.zeros((Cp, 2, KC), np.int32)
+    bounds = np.full((Cp, KC // W), np.inf, f32)
+    qsoa = np.zeros((Cp, 3, qcap), f32)
+    qidx = np.full((Cp, qcap), -1, np.int32)
+    next_index = [1000]
+
+    def fill_row(cell, pts, index=None, words=None):
+        """Candidates `pts` (relative to the centre) of row `cell`,
+        sorted by |c| (stably); returns the lane of each input point."""
+        pts = np.asarray(pts, f32)
+        mag = np.sqrt((pts * pts).sum(-1))
+        order = np.argsort(mag, kind="stable")
+        n = len(pts)
+        if index is None:
+            index = np.arange(next_index[0], next_index[0] + n)
+            next_index[0] += n
+        if words is None:
+            words = rng.integers(0, 1 << 15, size=(n, 2, 2))
+            words = words[..., 0] | (words[..., 1] << 16)
+        p = pts[order]
+        cand[cell, :3, :n] = (f32(-2) * p).T
+        cand[cell, 3, :n] = (p * p).sum(-1)
+        negidx[cell, :n] = -np.asarray(index, f32)[order]
+        attrp[cell, :, :n] = np.asarray(words, np.int32)[order].T
+        m = mag[order]
+        for w in range(KC // W):
+            if w * W < n:
+                bounds[cell, w] = m[w * W:(w + 1) * W].min()
+        lane = np.empty(n, int)
+        lane[order] = np.arange(n)
+        return lane
+
+    def centre(cell):
+        return np.array([cell // 4, cell // 2 % 2, cell % 2], f32)
+
+    ties = {}
+    # cell 0: B and A on the x axis, 800 ulp apart in |e|
+    base = int(np.array(0.2, f32).view(np.uint32)) & ~0x3FF
+    dA, dB = np.array([base + 100, base + 900], np.uint32).view(f32)
+    r2 = f32(0.1) * f32(0.1)
+    rr = np.sqrt(r2)
+    dqA, dqB = np.sqrt(dA * dA), np.sqrt(dB * dB)
+    L = rr + (dqA + dqB) / f32(2)
+    if not (rr + dqA < L <= rr + dqB and (L - dB) ** 2 <= r2 < (L - dA) ** 2):
+        raise AssertionError("the near-equal |e| case is not built as meant")
+    far = np.zeros((2 * W, 3), f32)
+    far[:, 0] = -(f32(0.15) + f32(5e-4) * np.arange(2 * W, dtype=f32))
+    gate_lane = fill_row(0, np.concatenate([far, [[L, 0, 0]]]))[-1]
+    qsoa[0, 0, :2] = dB, dA
+    qidx[0, :2] = 0, 1
+    ties["gate"] = (0, 0, [gate_lane])
+    # cell 1: exact ties across windows and threads, and within a thread
+    fill_pts = [[0, k / 1024, 0] for k in range(66, 206)] \
+        + [[0, 0, -k / 1024] for k in (100, 120, 140, 160)]
+    p = [0, 0, 65 / 1024]
+    pts = [[0.0625, 0, 0], [0.1875, 0, 0], p, p] + fill_pts
+    lo_hi = lambda lo, hi: lo | (hi << 16)
+    words = rng.integers(0, 1 << 15, size=(len(pts), 2))
+    words = np.asarray([[lo_hi(a, b), lo_hi(b, a)] for a, b in words])
+    words[0] = [lo_hi(30000, 5), lo_hi(7, 9)]
+    words[1] = [lo_hi(10, 20), lo_hi(20000, 3)]
+    words[2] = [lo_hi(5, 31000), lo_hi(1, 1)]
+    words[3] = [lo_hi(6, 2), lo_hi(32000, 4)]
+    index = [40, 7, 30, 12] + list(range(100, 100 + len(fill_pts)))
+    lanes = fill_row(1, pts, index, words)
+    if not (lanes[0] // W == 0 and lanes[1] // W == 1
+            and lanes[0] % W // 4 % 8 != lanes[1] % W // 4 % 8
+            and lanes[2] // 4 == lanes[3] // 4):
+        raise AssertionError("the tie case is not built as meant")
+    cc = centre(1)
+    qsoa[1, :, 3] = cc + f32([0.125, 0, 0])
+    qsoa[1, :, 7] = cc + f32(p)
+    qidx[1, [3, 7]] = 3, 7
+    ties["tie_cross"] = (1, 3, [lanes[0], lanes[1]])
+    ties["tie_thread"] = (1, 7, [lanes[2], lanes[3]])
+    # cell 2: 20 queries, 300 candidates
+    v = rng.normal(size=(300, 3)).astype(f32)
+    v *= (f32(0.6) * rng.uniform(size=(300, 1)).astype(f32) ** f32(1 / 3)
+          / np.linalg.norm(v, axis=1, keepdims=True))
+    fill_row(2, v)
+    slots = rng.choice(qcap, 20, replace=False)
+    qsoa[2, :, slots] = centre(2) + rng.uniform(
+        -0.4, 0.4, size=(20, 3)).astype(f32)
+    qidx[2, slots] = 20 + np.arange(20)
+    # cell 3: a query and no real lane; cell 4: lanes and no query
+    qsoa[3, :, 0] = centre(3) + f32(0.1)
+    qidx[3, 0] = 50
+    fill_row(4, rng.uniform(-0.5, 0.5, size=(40, 3)))
+    pack = np.array([[-1.0, 2.0 ** -14]] * 4, f32)
+    return {"cand": cand, "attrp": attrp, "negidx": negidx,
+            "bounds": bounds, "pack_lohi": pack,
+            "origin": np.full(3, -0.5, f32), "cell_size": f32(1.0),
+            "dims": dims, "kc": KC, "qsoa": qsoa, "qidx": qidx, "r2": r2,
+            "ties": ties}
+
+
+def fused_edge_grid(torch, rungrid, case, dev):
+    """The port's RunGrid (PT2PL) and query tensors of `fused_edge_case`:
+    (grid, qsoa, qidx, params) on `dev`."""
+    grid = rungrid.RunGrid.from_numpy(
+        case["cand"], case["attrp"], case["negidx"], case["bounds"],
+        case["pack_lohi"], case["origin"], case["cell_size"], case["dims"],
+        8, case["kc"], rungrid.EST_PT2PL, device=dev)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    params = rungrid.make_params(torch.eye(4), torch.tensor(case["r2"]), grid)
+    return grid, t(case["qsoa"]), t(case["qidx"]), params
+
+
+def check_fused_edges(np, torch, rungrid, rungrid_fused, dev):
+    """Kernel 2 on `fused_edge_case` against fused_plain: corres winners
+    and d2 equal (d2 within 1 ulp), the tie queries at the smallest
+    index, B alone finding the lane only its gate reaches; GN (PT2PL)
+    counts equal and sums within GN_REL_TOL of their group."""
+    case = fused_edge_case(np)
+    grid, qsoa, qidx, params = fused_edge_grid(torch, rungrid, case, dev)
+    d2k, nik = rungrid_fused.fused_query(grid, qsoa, qidx, params, 0, True)
+    d2p, nip = rungrid_fused.fused_plain(grid, qsoa, qidx, params, 0, True)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(d2p)
+    ulp = torch.nextafter(d2p.abs(), torch.tensor(float("inf"),
+                                                  device=dev)) - d2p.abs()
+    gap = torch.where(fin, (d2k - d2p).abs() - ulp, 0.0)
+    picks = {name: float(nik[c, s]) for name, (c, s, _) in
+             case["ties"].items()}
+    want = {name: float(nip[c, s]) for name, (c, s, _) in
+            case["ties"].items()}
+    if not torch.equal(fin, torch.isfinite(d2k)) or not torch.equal(nik, nip) \
+            or float(gap.max()) > 0 or picks != want \
+            or picks["tie_cross"] != -7.0 or picks["tie_thread"] != -12.0 \
+            or not bool(torch.isinf(d2k[0, 1])):
+        raise AssertionError(f"fused corres on the built cases: -index "
+                             f"{picks} vs plain {want}, max d2 gap beyond "
+                             f"1 ulp {float(gap.max())}")
+    sk = rungrid_fused.fused_query(grid, qsoa, qidx, params,
+                                   rungrid.EST_PT2PL, False).cpu()
+    sp = rungrid_fused.fused_plain(grid, qsoa, qidx, params,
+                                   rungrid.EST_PT2PL, False).cpu()
+    rel = max(float((sk[a:b] - sp[a:b]).abs().max())
+              / float(sp[a:b].abs().max()) for a, b in ((0, 21), (21, 27),
+                                                        (28, 29)))
+    if sk[27] != sp[27] or rel > GN_REL_TOL:
+        raise AssertionError(f"fused GN on the built cases: counts "
+                             f"{float(sk[27])} vs {float(sp[27])}, sums "
+                             f"within {rel} of their group")
+    print(f"kernel[fused built cases]: gate, tie_cross, tie_thread, pass, "
+          f"empty rows: corres equal to fused_plain ({picks}); GN count "
+          f"{int(sp[27])}, sums within {rel:.2e} of their group")
 
 
 def check_gmm(torch, rungrid, rungrid_gmm, nvcc, grid, qsoa, qidx, params,
@@ -755,59 +1297,35 @@ def main():
         print(f"build: {name} in {build_s:.2f} s (all sources at once); "
               f"ptxas: {' | '.join(ptxas) or 'cached'}")
 
-    # 3a. kernel 1 against its plain version at the headline shapes
-    tgt, tn, src, T_true = _headline_clouds(np, N_POINTS)
+    # 3a. kernel 1 against its plain version at the headline shapes,
+    # and on its built edge cases
     est = TransformationEstimationType.PointToPlane
-    tgt_d = torch.as_tensor(tgt, device=dev)
-    tn_d = torch.as_tensor(tn, device=dev)
-    src_d = torch.as_tensor(src, device=dev)
-    mask = torch.ones(N_POINTS, dtype=torch.bool, device=dev)
-    attrs, est_code = fused_icp.make_target_attrs(est, tgt_d, tn_d)
-    plan = poolgrid.plan_poolgrid(tgt, RADIUS, query_points=src,
-                                  est=est_code)
-
-    def build():
-        return poolgrid.make_poolgrid(
-            tgt_d, attrs, plan["origin"], plan["cell_size"], plan["dims"],
-            plan["cap"], plan["kc"], est=est_code, tile=plan["tile"],
-            mask=mask, active_cells=plan["active_cells"])
-
+    hp = headline_pool(np, torch, poolgrid, fused_icp, est, dev)
+    tgt, tn, src, T_true = hp["tgt"], hp["tn"], hp["src"], hp["T_true"]
+    tgt_d, tn_d, src_d, mask = hp["tgt_d"], hp["tn_d"], hp["src_d"], \
+        hp["mask"]
+    plan, build, est_code = hp["plan"], hp["build"], hp["est_code"]
     grid = build()
     print(f"plan: dims {plan['dims']} cap {plan['cap']} kc {plan['kc']} "
           f"qp {plan['qp']} tile {plan['tile']} supertiles {grid.n_tiles} "
           f"compact {plan['active_cells'] is not None}; table "
           f"{tuple(grid.table.shape)}")
     r2 = torch.tensor(RADIUS, dtype=torch.float32) ** 2
-    records = []
-    for mode, T in (("gn", np.eye(4, dtype=np.float32)), ("exact", T_true)):
-        T = torch.as_tensor(T)
-        qpool, _, _ = poolgrid.bin_queries_pool(
-            src_d, T, grid.origin, grid.cell_size, grid.dims, plan["qp"],
-            grid.tile, mask=mask, cell_map=grid.cell_map,
-            n_rank_pad=grid.n_tiles * grid.tile)
-        params = poolgrid.make_params(T, r2, grid)
-        records.append(check_slot_kernel(torch, poolgrid, poolgrid_slot,
-                                         grid, qpool, params, mode))
-    del qpool, params, grid
+    records = [check_slot_kernel(torch, poolgrid_slot, nvcc, grid, qpool,
+                                 params, mode, card_clock)
+               for mode, qpool, params in slot_inputs(np, torch, poolgrid,
+                                                      hp, grid)]
+    del grid
+    check_slot_edges(torch, poolgrid, poolgrid_slot, np, dev)
 
     # 3b. kernel 2, correspondence mode, at evaluate_registration's plan
-    # for the headline pair at the true pose (the grid built as it builds
-    # it: no attributes, kc = 27 cap rounded up)
-    src_true = src @ T_true[:3, :3].T + T_true[:3, 3]
-    eplan = rungrid.plan_rungrid(tgt, RADIUS, margin=0.0,
-                                 query_points=src_true, nch=0)
-    egrid = rungrid.make_rungrid(
-        tgt_d, tgt_d.new_zeros((N_POINTS, 0)), eplan["origin"],
-        eplan["cell_size"], eplan["dims"], eplan["cap"], mask=mask)
-    src_true_d = torch.as_tensor(src_true, device=dev)
-    qsoa, qidx = rungrid.bin_queries(
-        src_true_d, src_true_d, egrid.origin, egrid.cell_size, egrid.dims,
-        eplan["qcap"], mask=mask)
+    # for the headline pair at the true pose
+    eplan, egrid, qsoa, qidx, eparams = evaluate_input(np, torch, rungrid,
+                                                       hp)
     print(f"evaluate plan: dims {eplan['dims']} cap {eplan['cap']} kc "
           f"{egrid.kc} (plan kc {eplan['kc']}) qcap {eplan['qcap']}")
-    fused_recs = [check_fused_corres(
-        torch, rungrid, rungrid_fused, egrid, qsoa, qidx,
-        rungrid.make_params(torch.eye(4), r2, egrid))]
+    fused_recs = [check_fused_corres(torch, rungrid, rungrid_fused, nvcc,
+                                     egrid, qsoa, qidx, eparams, card_clock)]
     # the target points this grid holds (the rest it dropped at its cell
     # cap); evaluate_registration builds the same grid from the same
     # target below
@@ -816,38 +1334,23 @@ def main():
     held[(-ni).long().cpu().numpy()] = True
     del egrid, qsoa, qidx, ni
 
-    # 3c. kernel 2, Gauss-Newton mode, at the run-grid ICP fallback's plan
-    ftgt, ftn, fsrc, fT_true = _headline_clouds(np, N_POINTS,
-                                                side=FALLBACK_SIDE)
-    if poolgrid.plan_poolgrid(ftgt, RADIUS, query_points=fsrc,
-                              est=est_code) is not None:
-        raise AssertionError("the fallback cloud's pool plan was accepted")
-    fplan = rungrid.plan_rungrid(ftgt, RADIUS, query_points=fsrc, nch=4)
-    if fplan is None:
-        raise AssertionError("the fallback cloud's run plan was rejected")
+    # 3c. kernel 2, Gauss-Newton mode, at the run-grid ICP fallback's plan,
+    # and both modes on the built edge cases
+    fb = fallback_cloud(np, torch, poolgrid, rungrid, est_code, dev)
+    ftgt, ftn, fsrc, fT_true = fb["tgt"], fb["tn"], fb["src"], fb["T_true"]
+    ftgt_d, ftn_d, fsrc_d, fsn_d = fb["tgt_d"], fb["tn_d"], fb["src_d"], \
+        fb["sn_d"]
+    fplan = fb["plan"]
     print(f"fallback plan: dims {fplan['dims']} cap {fplan['cap']} kc "
           f"{fplan['kc']} qcap {fplan['qcap']}")
-    ftgt_d = torch.as_tensor(ftgt, device=dev)
-    ftn_d = torch.as_tensor(ftn, device=dev)
-    fsrc_d = torch.as_tensor(fsrc, device=dev)
-    fsn_d = torch.as_tensor(ftn @ fT_true[:3, :3], device=dev)
-    for est_type in (TransformationEstimationType.PointToPoint,
-                     TransformationEstimationType.PointToPlane,
-                     TransformationEstimationType.SymmetricMethod):
-        fattrs, fcode = fused_icp.make_target_attrs(est_type, ftgt_d, ftn_d)
-        fgrid = rungrid.make_rungrid(
-            ftgt_d, fattrs, fplan["origin"], fplan["cell_size"],
-            fplan["dims"], fplan["cap"], mask=mask, est=fcode,
-            kc=fplan["kc"])
-        sym = est_type == TransformationEstimationType.SymmetricMethod
-        qsoa, qidx = rungrid.bin_queries(
-            fsrc_d, fsrc_d, fgrid.origin, fgrid.cell_size, fgrid.dims,
-            fplan["qcap"], extra=fsn_d if sym else None,
-            n_extra=3 if sym else 0, mask=mask)
+    for est_type, fgrid, qsoa, qidx, fparams in fallback_inputs(
+            torch, rungrid, fused_icp, TransformationEstimationType, fb,
+            mask):
         fused_recs.append(check_fused_gn(
-            torch, rungrid, rungrid_fused, fused_icp, est_type, fgrid, qsoa, qidx,
-            rungrid.make_params(torch.eye(4), r2, fgrid)))
+            torch, rungrid, rungrid_fused, fused_icp, nvcc, est_type, fgrid,
+            qsoa, qidx, fparams, card_clock))
         del fgrid, qsoa, qidx
+    check_fused_edges(np, torch, rungrid, rungrid_fused, dev)
 
     # 3d. kernel 3 at the FilterReg plan, and on two queries whose |e|
     # differ in their last bits

@@ -61,6 +61,8 @@
 // - Small blocks: a window's barrier holds 2 warps, not 8, so a warp
 //   whose queries finish early waits on one other warp, and 12 blocks of
 //   80 registers a thread share an SM (8 KB of shared memory each).
+// The sort, the grouping and the window ring are rungrid_common.cuh's,
+// shared with the fused pass.
 
 #include <cuda_runtime.h>
 
@@ -69,52 +71,24 @@
 namespace {
 
 using rungrid::Frame;
+using rungrid::kFull;
+using rungrid::kGroup;
+using rungrid::kPassQueries;
+using rungrid::kThreads;
+using rungrid::kWarpQueries;
 using rungrid::kWindow;
+using rungrid::kWindowFloats;
 using rungrid::Query;
 
-constexpr int kThreads = 64;
 constexpr int kMinBlocks = 12;                  // an SM holds; caps registers
-constexpr int kWarps = kThreads / 32;
-constexpr int kGroup = 8;                        // threads of one query group
-constexpr int kWarpQueries = 2 * 32 / kGroup;    // 8: 4 groups x 2
-constexpr int kPassQueries = kWarps * kWarpQueries;
-constexpr int kRing = 4;                         // window buffers
-constexpr int kWindowFloats = 4 * kWindow;       // x', y', z', |c|^2 planes
+constexpr int kRing = 4;                        // window buffers
+constexpr int kWarps = rungrid::kWarps;
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// every group but the newest kRing - 2 has landed
-__device__ __forceinline__ void cp_async_wait_ring() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kRing - 2) : "memory");
-}
 
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
-}
-
-// Starts the copy of window w of a row ([4, KC] planes) into `buf`: 128
-// pieces of 16 bytes over the block's threads.
-__device__ __forceinline__ void load_window(float* buf, const float* row,
-                                            int KC, int w) {
-  for (int t = threadIdx.x; t < kWindowFloats / 4; t += kThreads) {
-    const int plane = t / (kWindow / 4), piece = t % (kWindow / 4);
-    cp_async16(buf + plane * kWindow + piece * 4,
-               row + static_cast<size_t>(plane) * KC + w * kWindow +
-                   piece * 4);
-  }
 }
 
 // Queries a thread holds: cell-centred e, qn, and five running sums
@@ -170,16 +144,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                const float* __restrict__ bounds, float* __restrict__ out,
                int Cp, int NQ, int qcap, int KC, int Gx, int Gy, int Gz) {
   __shared__ __align__(16) float ring[kRing][kWindowFloats];
-  extern __shared__ unsigned long long qs[];   // [qcap] keys, see below
+  extern __shared__ unsigned long long qs[];   // rungrid::sort_smem(qcap)
   __shared__ int s_n;
-  unsigned long long* key = qs;                           // valid, unsorted
-  int* slot_s = reinterpret_cast<int*>(qs + qcap);        // sorted slots
-  float* dq_s = reinterpret_cast<float*>(slot_s + qcap);  // sorted |e|
 
   const int cell = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
   const int NW = KC / kWindow;
   const size_t plane = static_cast<size_t>(Cp) * qcap;
   float* o = out + static_cast<size_t>(cell) * qcap;
@@ -192,55 +160,31 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const float rr = sqrtf(r2);
   const float scale = __fmul_rn(-params[17], kLog2e);
 
-  // empty slots get 0; valid ones are listed with a key that orders them
-  // by |e| and then by slot: the bits of |e| (>= 0, so they order as the
-  // floats do) above the slot. Keys are unique, so the order is the same
-  // on every run and exact in |e|.
-  if (tid == 0) s_n = 0;
-  __syncthreads();
-  for (int s = tid; s < qcap; s += kThreads) {
-    if (qi[s] < 0) {
-      for (int m = 0; m < 5; ++m) o[m * plane + s] = 0.f;
-      continue;
-    }
-    const float d = Query(f, qc[s], qc[qcap + s], qc[2 * qcap + s]).dqc;
-    key[atomicAdd(&s_n, 1)] =
-        static_cast<unsigned long long>(__float_as_uint(d)) << 32 |
-        static_cast<unsigned>(s);
-  }
-  __syncthreads();
-  const int n = s_n;
+  // empty slots get 0; valid ones are sorted by |e|, then by slot
+  int* slot_s;
+  float* dq_s;
+  const int n = rungrid::sort_queries(
+      qs, &s_n, qc, qi, qcap, f, &slot_s, &dq_s, [&](int s) {
+        for (int m = 0; m < 5; ++m) o[m * plane + s] = 0.f;
+      });
   if (n == 0) return;          // uniform across the block
-  for (int i = tid; i < n; i += kThreads) {
-    const unsigned long long k = key[i];
-    int r = 0;
-    for (int j = 0; j < n; ++j) r += key[j] < k;
-    slot_s[r] = static_cast<int>(k & 0xffffffffu);
-    dq_s[r] = __uint_as_float(static_cast<unsigned>(k >> 32));
-  }
-  __syncthreads();
 
-  const int g = lane / kGroup;           // this thread's group in the warp
-  const int gl = lane % kGroup;          // and its place in the group
   for (int p0 = 0; p0 < n; p0 += kPassQueries) {
     // the windows the pass's farthest query reaches (all the block
     // streams), and those this warp's farthest query reaches
     const int np = min(kPassQueries, n - p0);
-    const int nw = __popc(__ballot_sync(
-        kFull, lane < NW && bw[lane] <= rr + dq_s[p0 + np - 1]));
-    const int w0 = p0 + warp * kWarpQueries;
-    const int cnt = max(0, min(kWarpQueries, n - w0));
-    const int gw = cnt == 0 ? 0 : __popc(__ballot_sync(
-        kFull, lane < NW && bw[lane] <= rr + dq_s[w0 + cnt - 1]));
-    const bool pair = cnt > kWarpQueries / 2;
+    const int nw = rungrid::windows_within(bw, NW, rr + dq_s[p0 + np - 1]);
+    const rungrid::PassPlace pp(p0, n);
+    const int gw = pp.cnt == 0 ? 0 : rungrid::windows_within(
+        bw, NW, rr + dq_s[pp.w0 + pp.cnt - 1]);
+    const bool pair = pp.pair;
     Held h;
     int slot[2];
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      const int t = g + j * (kWarpQueries / 2);
-      slot[j] = t < cnt && (j == 0 || pair) ? slot_s[w0 + t] : -1;
+      slot[j] = pp.idx[j] >= 0 ? slot_s[pp.idx[j]] : -1;
       // a missing query scores a copy of the warp's first, unwritten
-      const int s = cnt == 0 ? 0 : (slot[j] >= 0 ? slot[j] : slot_s[w0]);
+      const int s = pp.pos[j] >= 0 ? slot_s[pp.pos[j]] : 0;
       const Query e(f, qc[s], qc[qcap + s], qc[2 * qcap + s]);
       h.ex[j] = e.ex;
       h.ey[j] = e.ey;
@@ -251,20 +195,21 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     }
 #pragma unroll
     for (int s = 0; s < kRing - 1; ++s) {
-      if (s < nw) load_window(ring[s], row, KC, s);
-      cp_async_commit();
+      if (s < nw) rungrid::load_window(ring[s], row, KC, s);
+      rungrid::cp_async_commit();
     }
     for (int w = 0; w < nw; ++w) {
-      cp_async_wait_ring();
+      rungrid::cp_async_wait_ring<kRing>();
       __syncthreads();         // window w landed; window w - 1 is done
       const int ahead = w + kRing - 1;
-      if (ahead < nw) load_window(ring[ahead % kRing], row, KC, ahead);
-      cp_async_commit();
+      if (ahead < nw)
+        rungrid::load_window(ring[ahead % kRing], row, KC, ahead);
+      rungrid::cp_async_commit();
       if (w < gw) {
         if (pair)
-          scan_window<2>(h, ring[w % kRing], gl, r2, scale);
+          scan_window<2>(h, ring[w % kRing], pp.gl, r2, scale);
         else
-          scan_window<1>(h, ring[w % kRing], gl, r2, scale);
+          scan_window<1>(h, ring[w % kRing], pp.gl, r2, scale);
       }
     }
     __syncthreads();           // the ring is free for the next pass
@@ -277,7 +222,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         for (int off = kGroup / 2; off > 0; off >>= 1)
           h.m[j][m] += __shfl_xor_sync(kFull, h.m[j][m], off);
       }
-      if (gl == 0 && slot[j] >= 0) {
+      if (pp.gl == 0 && slot[j] >= 0) {
         const int s = slot[j];
         o[s] = h.m[j][0];
         o[plane + s] = -0.5f * h.m[j][1];
@@ -287,11 +232,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       }
     }
   }
-}
-
-size_t dynamic_smem(int qcap) {
-  return static_cast<size_t>(qcap) * (sizeof(unsigned long long) +
-                                      sizeof(int) + sizeof(float));
 }
 
 }  // namespace
@@ -304,7 +244,7 @@ extern "C" int rungrid_gmm_launch(const void* params, const void* qsoa,
                                   const void* bounds, void* out, int Cp,
                                   int NQ, int qcap, int KC, int Gx, int Gy,
                                   int Gz, void* stream) {
-  gmm_kernel<<<Cp, kThreads, dynamic_smem(qcap),
+  gmm_kernel<<<Cp, kThreads, rungrid::sort_smem(qcap),
                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(params), static_cast<const float*>(qsoa),
       static_cast<const int*>(qidx), static_cast<const float*>(cand),
@@ -319,7 +259,7 @@ extern "C" int rungrid_gmm_launch(const void* params, const void* qsoa,
 extern "C" int rungrid_gmm_occupancy(int qcap, int* warps) {
   int blocks = 0;
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, gmm_kernel, kThreads, dynamic_smem(qcap));
+      &blocks, gmm_kernel, kThreads, rungrid::sort_smem(qcap));
   if (err != cudaSuccess) return -static_cast<int>(err);
   *warps = kWarps;
   return blocks;

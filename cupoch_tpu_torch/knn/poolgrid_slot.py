@@ -23,6 +23,10 @@ from ..utility import nvcc
 
 SLOT_MASK = 0xFFF  # low 12 bits of the packed key carry the slot
 
+# the kernel's limits: cells a supertile, pooled queries (16-bit lists)
+MAX_TILE = 64
+MAX_QP = 1 << 16
+
 #: kernel launches since the count was last set to 0
 launches = 0
 
@@ -45,6 +49,10 @@ def _check(grid, qpool: torch.Tensor, params: torch.Tensor):
                          f"{grid.kc} slots")
     if grid.kc > SLOT_MASK + 1:
         raise ValueError(f"kc {grid.kc} exceeds the 12-bit slot field")
+    if grid.tile > MAX_TILE or QP > MAX_QP:
+        raise ValueError(f"the slot pass takes at most {MAX_TILE} cells a "
+                         f"supertile and {MAX_QP} pooled queries, got "
+                         f"{grid.tile} and {QP}")
     if not (qpool.device == table.device == params.device):
         raise ValueError("qpool, table and params must share a device")
     if not (qpool.is_contiguous() and table.is_contiguous()
@@ -82,6 +90,20 @@ def slot_pass(grid, qpool: torch.Tensor, params: torch.Tensor
         raise RuntimeError(f"poolgrid_slot launch failed: CUDA error {err}")
     launches += 1
     return out
+
+
+def occupancy(QP: int, KC: int) -> tuple:
+    """(blocks an SM holds at once, warps a block) of the kernel that
+    `slot_pass` launches at these shapes, as the CUDA runtime reports
+    them on the current card."""
+    fn = nvcc.load("poolgrid_slot").poolgrid_slot_occupancy
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    warps = ctypes.c_int(0)
+    blocks = fn(QP, KC, ctypes.byref(warps))
+    if blocks < 0:
+        raise RuntimeError(f"poolgrid_slot occupancy: CUDA error {-blocks}")
+    return blocks, warps.value
 
 
 def slot_plain(grid, qpool: torch.Tensor, params: torch.Tensor

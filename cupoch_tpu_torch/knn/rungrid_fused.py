@@ -137,6 +137,20 @@ def fused_query(grid: RunGrid, qsoa, qidx, params, est: int,
     return out0.sum(0)
 
 
+def occupancy(qcap: int, P: int, est: int, corres: bool) -> tuple:
+    """(blocks an SM holds at once, warps a block) of the kernel that
+    `fused_query` launches for this mode at this qcap, as the CUDA
+    runtime reports them on the current card."""
+    fn = nvcc.load("rungrid_fused").rungrid_fused_occupancy
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    warps = ctypes.c_int(0)
+    blocks = fn(qcap, P, est, int(corres), ctypes.byref(warps))
+    if blocks < 0:
+        raise RuntimeError(f"rungrid_fused occupancy: CUDA error {-blocks}")
+    return blocks, warps.value
+
+
 def fused_plain(grid: RunGrid, qsoa, qidx, params, est: int,
                 corres: bool):
     """Plain PyTorch version of the fused pass (mirrors the JAX

@@ -7,11 +7,14 @@ as tests/test_poolgrid.py runs it on the CPU; the port's slot pass on
 CPU tensors runs its plain version `slot_plain`, which agrees bit for
 bit with the CUDA kernel.
 """
+import functools
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
+import chip_smoke
 from cupoch_tpu.knn import poolgrid as jpg
 from cupoch_tpu.registration import fused_icp as jicp
 from cupoch_tpu.registration.estimation import (
@@ -330,3 +333,58 @@ def test_torch_slot_pass_checks_inputs(rng):
     before = poolgrid_slot.launches
     poolgrid_slot.slot_pass(gt, qt, pt)
     assert poolgrid_slot.launches == before   # CPU: no kernel launch
+
+
+# ---------------------------------------------------------------------------
+# kernel 1's built edge cases (chip_smoke.slot_edge_case; chip_smoke.py
+# holds the CUDA kernel to slot_plain on the same input)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=1)
+def _slot_edge():
+    """(case, slot_plain's slots, the JAX mirror's slots), both [G, QP]."""
+    case = chip_smoke.slot_edge_case(np)
+    grid_t, qt, pt = chip_smoke.slot_edge_grid(torch, tpg, case, "cpu")
+    T, KC = case["tile"], case["kc"]
+    G = case["qpool"].shape[0]
+    # the JAX grid's lanes-major bf16 table, every value exact in bf16
+    # (the empty slots' 3e18 as 2^61: both far above any real score)
+    scan = case["table"].reshape(G, T, KC, 4).transpose(0, 2, 1, 3) \
+        .reshape(G * KC, 4 * T)
+    scan = np.where(scan == np.float32(3e18), np.float32(2.0 ** 61), scan)
+    assert (np.asarray(jnp.asarray(scan, jnp.bfloat16), np.float32)
+            == scan).all()
+    grid_j = jpg.PoolGrid(
+        jnp.asarray(scan, jnp.bfloat16), jnp.zeros(scan.shape, jnp.bfloat16),
+        jnp.zeros((1, 4)), jnp.zeros(3), jnp.float32(1.0),
+        jnp.float32(case["params"][13]), (4, 4, 2 * G), case["cap"], KC, 0,
+        T)
+    want = jpg._slot_xla(grid_j, jnp.asarray(case["qpool"]),
+                         jnp.asarray(case["params"]), exact=True)
+    return (case, poolgrid_slot.slot_plain(grid_t, qt, pt).numpy(),
+            np.asarray(want).astype(np.int32))
+
+
+@pytest.mark.parametrize("part", ["one_cell", "small_cells", "equal_keys",
+                                  "empty_row", "empty_lanes"])
+def test_torch_slot_plain_built_cases_match_jax(part):
+    """slot_plain against the JAX mirror `_slot_xla` on kernel 1's built
+    cases: every valid lane's slot equal (the scores are exact, so the
+    keys are too); equal keys go to the lower slot (slot 4, not 9), a row
+    without a real slot gives slot 0, and tag -1 lanes get slot 0, as the
+    kernel's header says (the mirror scores them against cell 0)."""
+    case, got, want = _slot_edge()
+    g, lanes = case["parts"][part]
+    valid = case["qpool"][g, 3] >= 0
+    np.testing.assert_array_equal(got[g][lanes & valid],
+                                  want[g][lanes & valid])
+    assert (got[g][~valid] == 0).all()
+    if part == "equal_keys":
+        assert lanes.sum() == 9 and (got[g][lanes] == 4).all()
+    elif part == "empty_row":
+        assert lanes.sum() == 1 and (got[g][lanes] == 0).all()
+    elif part == "empty_lanes":
+        assert not valid.any()
+    else:
+        assert (lanes & valid).sum() >= 83
+

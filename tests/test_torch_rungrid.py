@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import chip_smoke
 from cupoch_tpu.knn import bruteforce as jbf
 from cupoch_tpu.knn import rungrid as jrg
 from cupoch_tpu.registration import fused_icp as jicp
@@ -348,3 +349,83 @@ def test_torch_rungrid_wrappers_check_inputs(rng):
         rungrid_gmm.gmm_pass(gt, qs[:, :, ::2], qi[:, ::2], p)
     with pytest.raises(ValueError):   # a GN pass for another estimator
         rungrid_fused.fused_query(gt, qs, qi, p, trg.EST_SYM, False)
+
+
+# ---------------------------------------------------------------------------
+# kernel 2's built edge cases (chip_smoke.fused_edge_case; chip_smoke.py
+# holds the CUDA kernel to fused_plain on the same input)
+# ---------------------------------------------------------------------------
+
+def _fused_edge(case):
+    """(port grid, qsoa, qidx, params), (JAX grid, qsoa, qidx, params)."""
+    port = chip_smoke.fused_edge_grid(torch, trg, case, "cpu")
+    gj = jrg.RunGrid(*(jnp.asarray(case[k]) for k in (
+        "cand", "attrp", "negidx", "bounds", "pack_lohi", "origin",
+        "cell_size")), case["dims"], 8, case["kc"], jrg.EST_PT2PL)
+    pj = jrg.make_params(jnp.eye(4, dtype=jnp.float32),
+                         jnp.float32(case["r2"]), gj)
+    return port, (gj, jnp.asarray(case["qsoa"]), jnp.asarray(case["qidx"]),
+                  pj)
+
+
+@pytest.mark.parametrize("mode", ["corres", "gn"])
+def test_torch_fused_plain_built_cases_match_jax(mode):
+    """fused_plain against the JAX mirror `_fused_query_xla` on kernel 2's
+    built cases (near-equal |e| gate, exact ties across windows, threads
+    and within a thread, more queries than a pass, rows without a lane
+    or a query), with test_torch_fused_*'s tolerances; the corres winners
+    follow the kernel header's contract: the tie goes to the smallest
+    index, and only the farther query of the gate case finds its lane."""
+    case = chip_smoke.fused_edge_case(np)
+    port, jax_in = _fused_edge(case)
+    if mode == "corres":
+        d2t, nit = (x.numpy() for x in rungrid_fused.fused_query(
+            *port, trg.EST_NONE, True))
+        d2j, nij = (np.asarray(x) for x in jrg.fused_query(
+            *jax_in, jrg.EST_NONE, True, use_pallas=False))
+        fin = np.isfinite(d2j)
+        assert (np.isfinite(d2t) == fin).all() and fin.sum() >= 12
+        np.testing.assert_array_equal(nit, nij)
+        np.testing.assert_allclose(d2t[fin], d2j[fin], rtol=0, atol=1e-6)
+        ties = case["ties"]
+        assert nit[ties["tie_cross"][:2]] == -7.0
+        assert nit[ties["tie_thread"][:2]] == -12.0
+        cell, slot, (lane,) = ties["gate"]
+        assert nit[cell, slot] == case["negidx"][cell, lane]
+        assert np.isinf(d2t[cell, 1])             # A: nothing within r
+        assert np.isinf(d2t[3, 0]) and nit[3, 0] == 1.0   # no real lane
+        assert np.isfinite(d2t[2]).sum() >= 5     # the 20-query cell
+    else:
+        st = rungrid_fused.fused_query(*port, trg.EST_PT2PL, False).numpy()
+        sj = np.asarray(jnp.sum(jrg.fused_query(
+            *jax_in, jrg.EST_PT2PL, False, use_pallas=False), 0))
+        np.testing.assert_allclose(st, sj, rtol=0,
+                                   atol=1e-4 * np.abs(sj).max())
+        assert st[27] == sj[27] and sj[27] >= 8
+
+
+@pytest.mark.parametrize("mode", ["corres", "gn"])
+def test_torch_fused_plain_tie_rule(mode):
+    """The tie rule of csrc/rungrid_fused.cu's header on the built exact
+    ties: an exact tie takes, per channel, the largest word over the tied
+    lanes (corres: -index, so the smallest index). Giving every tied lane
+    that word leaves fused_plain's result bit for bit the same."""
+    case = chip_smoke.fused_edge_case(np)
+    moved = {k: v.copy() if isinstance(v, np.ndarray) else v
+             for k, v in case.items()}
+    for name in ("tie_cross", "tie_thread"):
+        cell, _, lanes = case["ties"][name]
+        words = case["attrp"][cell][:, lanes]
+        assert (words[:, 0] != words[:, 1]).all()
+        moved["attrp"][cell][:, lanes] = words.max(1, keepdims=True)
+        moved["negidx"][cell, lanes] = case["negidx"][cell, lanes].max()
+    a, _ = _fused_edge(case)
+    b, _ = _fused_edge(moved)
+    if mode == "corres":
+        for x, y in zip(rungrid_fused.fused_query(*a, trg.EST_NONE, True),
+                        rungrid_fused.fused_query(*b, trg.EST_NONE, True)):
+            assert torch.equal(x, y)
+    else:
+        assert torch.equal(
+            rungrid_fused.fused_query(*a, trg.EST_PT2PL, False),
+            rungrid_fused.fused_query(*b, trg.EST_PT2PL, False))

@@ -63,12 +63,24 @@ Phases, each printed on its own line:
        fallback, grid FilterReg, Colored ICP and GICP on the brute-force,
        roll and cell branches, the brute-force fallback of a target every
        grid plan rejects, and the hash-grid branch;
+     - 4g. global registration (`global_registration`): a built room
+       scene of 1M points a cloud (`scene_pair`: floor, wavy wall, six
+       floating objects, 2 mm noise, 0.5% outliers; the source sampled
+       apart and moved 0.6 rad and 0.54 m), through voxel
+       down-sampling, normals, statistical outlier removal, RANSAC
+       plane, DBSCAN, FPFH, Fast Global Registration and point-to-plane
+       ICP on the full clouds, one cold and three warm runs with each
+       step's ms, held to the plane, the clusters, FGR's and the refined
+       pose, and the launches of the branches taken; then the same
+       pipeline up to FGR on 10k points on the card against the CPU
+       path;
   5. one JSON line of per-kernel numbers, then the result line.
 
 Any failure raises and exits non-zero. Without a card it exits
 non-zero before printing a result; it never falls back to the CPU.
 """
 import json
+import os
 import statistics
 import subprocess
 import time
@@ -190,6 +202,534 @@ def _sheet(np, n=SHEET_POINTS, side=3.0, seed=1):
     nv /= np.linalg.norm(nv, axis=1, keepdims=True)
     return (np.column_stack([xy, z]).astype(np.float32),
             nv.astype(np.float32))
+
+
+# the global-registration scene (phase 4g): a room corner in metres, a
+# floor over [0,4]^2, a wavy wall and six objects that float at least
+# 0.15 m above the floor and stand at least 0.3 m apart: (kind, centre,
+# size) with size the box's edges, the sphere's radius or the cylinder's
+# (radius, height)
+SCENE_OBJECTS = (
+    ("box", (0.8, 0.8, 0.30), (0.40, 0.30, 0.25)),
+    ("box", (2.0, 0.9, 0.40), (0.60, 0.20, 0.35)),
+    ("box", (3.2, 1.0, 0.45), (0.25, 0.25, 0.50)),
+    ("sphere", (0.9, 2.4, 0.45), 0.25),
+    ("cylinder", (2.1, 2.4, 0.45), (0.15, 0.50)),
+    ("box", (3.2, 2.5, 0.40), (0.50, 0.40, 0.15)),
+)
+SCENE_WALL_HEIGHT = 1.5
+SCENE_NOISE = 0.002          # m, Gaussian on each coordinate
+SCENE_OUTLIERS = 0.005       # share of uniform outliers in the room box
+SCENE_AXIS = (1.0, 2.0, 3.0)
+SCENE_ANGLE = 0.6            # rad, about SCENE_AXIS
+SCENE_SHIFT = (0.4, -0.3, 0.2)
+
+
+def _wall_y(np, x):
+    return 3.9 + 0.08 * np.sin(2.5 * x)
+
+
+def _scene_parts(np):
+    """(area, sampler) per surface: the floor, the wall, the objects;
+    a sampler maps (rng, count) to [count, 3] points on its surface."""
+    def floor(rng, m):
+        return np.column_stack([rng.uniform(0, 4, (m, 2)), np.zeros(m)])
+
+    def wall(rng, m):
+        x = rng.uniform(0, 4, m)
+        return np.column_stack([x, _wall_y(np, x),
+                                rng.uniform(0, SCENE_WALL_HEIGHT, m)])
+
+    def box(c, e):
+        e = np.asarray(e)
+        faces = [(a, sgn) for a in range(3) for sgn in (-1, 1)]
+        areas = np.asarray([np.prod(np.delete(e, a)) for a, _ in faces])
+
+        def sample(rng, m):
+            f = rng.choice(len(faces), m, p=areas / areas.sum())
+            p = rng.uniform(-0.5, 0.5, (m, 3)) * e
+            for i, (a, sgn) in enumerate(faces):
+                p[f == i, a] = sgn * e[a] / 2
+            return p + c
+        return float(areas.sum()), sample
+
+    def sphere(c, r):
+        def sample(rng, m):
+            v = rng.normal(size=(m, 3))
+            return c + r * v / np.linalg.norm(v, axis=1, keepdims=True)
+        return 4 * np.pi * r * r, sample
+
+    def cylinder(c, rh):
+        r, h = rh
+        side, cap = 2 * np.pi * r * h, np.pi * r * r
+
+        def sample(rng, m):
+            part = rng.choice(3, m, p=np.asarray([side, cap, cap])
+                              / (side + 2 * cap))
+            ang = rng.uniform(0, 2 * np.pi, m)
+            rad = np.where(part == 0, r, r * np.sqrt(rng.uniform(0, 1, m)))
+            z = np.where(part == 0, rng.uniform(-h / 2, h / 2, m),
+                         np.where(part == 1, -h / 2, h / 2))
+            return c + np.column_stack([rad * np.cos(ang),
+                                        rad * np.sin(ang), z])
+        return side + 2 * cap, sample
+
+    make = {"box": box, "sphere": sphere, "cylinder": cylinder}
+    parts = [(16.0, floor), (4.04 * SCENE_WALL_HEIGHT, wall)]
+    return parts + [make[k](np.asarray(c), sz) for k, c, sz in
+                    SCENE_OBJECTS]
+
+
+def global_scene(np, n, seed):
+    """n points [n, 3] f32 sampled from the scene's surfaces in
+    proportion to their areas, with SCENE_NOISE of noise, SCENE_OUTLIERS
+    of them uniform in the room's box."""
+    rng = np.random.default_rng(seed)
+    parts = _scene_parts(np)
+    n_out = int(round(SCENE_OUTLIERS * n))
+    areas = np.asarray([a for a, _ in parts])
+    counts = rng.multinomial(n - n_out, areas / areas.sum())
+    pts = [smp(rng, m) for (_, smp), m in zip(parts, counts)]
+    pts.append(rng.uniform(0, 1, (n_out, 3))
+               * np.asarray([4.0, 4.0, SCENE_WALL_HEIGHT]))
+    pts = np.concatenate(pts) + rng.normal(size=(n, 3)) * SCENE_NOISE
+    return pts[rng.permutation(n)].astype(np.float32)
+
+
+def scene_motion(np):
+    """(the motion applied to the source, the true pose T with
+    T @ source = target): SCENE_ANGLE about SCENE_AXIS and
+    SCENE_SHIFT."""
+    axis = np.asarray(SCENE_AXIS) / np.linalg.norm(SCENE_AXIS)
+    K = np.asarray([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                    [-axis[1], axis[0], 0]])
+    M = np.eye(4)
+    M[:3, :3] = np.eye(3) + np.sin(SCENE_ANGLE) * K \
+        + (1 - np.cos(SCENE_ANGLE)) * K @ K
+    M[:3, 3] = SCENE_SHIFT
+    return M, np.linalg.inv(M).astype(np.float32)
+
+
+def scene_pair(np, n, seeds=(11, 12)):
+    """Target and source sampled independently from the scene (two
+    seeds), the source then moved by `scene_motion`: (target, source,
+    true pose)."""
+    tgt = global_scene(np, n, seeds[0])
+    src = global_scene(np, n, seeds[1])
+    M, T_true = scene_motion(np)
+    src = (src.astype(np.float64) @ M[:3, :3].T + M[:3, 3]).astype(
+        np.float32)
+    return tgt, src, T_true
+
+
+def object_boxes(np, margin=0.08):
+    """[6, 2, 3] (low, high) corners of each object's box widened by
+    `margin`: the room within which its points lie."""
+    out = []
+    for kind, c, sz in SCENE_OBJECTS:
+        c = np.asarray(c)
+        half = {"box": lambda: np.asarray(sz) / 2,
+                "sphere": lambda: np.full(3, sz),
+                "cylinder": lambda: np.asarray([sz[0], sz[0], sz[1] / 2])
+                }[kind]() + margin
+        out.append((c - half, c + half))
+    return np.asarray(out)
+
+
+GLOBAL_POINTS = 1_000_000
+GLOBAL_SMALL_POINTS = 10_000
+GLOBAL_VOXEL = 0.02          # v: Open3D's global-registration tutorial
+GLOBAL_WARM_RUNS = 3
+GLOBAL_PHASE_S = 60.0
+PLANE_MAX_DEG = 1.0
+PLANE_FLOOR_SHARE = 0.90
+FGR_MAX_RAD = 0.05           # and 2v at the source's centroid
+REFINE_MIN_FITNESS = 0.95    # the scene allows about 0.99 (PERF.md)
+STRAY_CLUSTER_SHARE = 0.005
+
+
+def fpfh_moved_pairs(np, fa, fb, weight):
+    """Rows of two [N, 33] histograms, each either equal within 1e-4
+    relative (`close`), or differing by one pair's `weight` [N] moved
+    from one bin to another in one or more of the three 11-bin blocks
+    (`moved`): a pair whose `atan2` or `floor` rounds across a bin edge
+    in one computation only, or whose source / target swap
+    (|angle1| < |angle2|) falls the other way on a near-tie, which
+    mirrors its f2 bin and may move its f0 and f1 bins. Returns
+    (close, moved)."""
+    diff = fb - fa
+    tol = 1e-4 * np.maximum(np.abs(fa).max(-1, keepdims=True), 1.0)
+    close = (np.abs(diff) <= tol).all(-1)
+    moved = np.zeros(len(fa), bool)
+    for i in np.nonzero(~close)[0]:
+        d = diff[i].reshape(3, 11)
+        ok = True
+        for blk in d:
+            big = np.nonzero(np.abs(blk) > tol[i, 0])[0]
+            if big.size == 0:
+                continue
+            ok &= (big.size == 2 and abs(blk[big].sum()) <= tol[i, 0]
+                   and bool(np.allclose(np.abs(blk[big]), weight[i],
+                                        rtol=1e-4)))
+        moved[i] = ok
+    return close, moved
+
+
+def run_global_pipeline(torch, ctt, src, tgt, v, device, counts=None,
+                        refine=True):
+    """The global-registration pipeline through the public entries, on
+    `device` (pipeline_demo.py's point-cloud steps, then Open3D's
+    global-registration tutorial at voxel v; with `refine`, its ICP
+    refinement on the full clouds): returns (outputs, ms per step).
+    With `counts`, the outputs hold the launches made inside FGR."""
+    reg, knn = ctt.registration, ctt.knn
+    cuda = torch.device(device).type == "cuda"
+    ms, out = {}, {}
+
+    def step(name, fn):
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        return r
+
+    s_full = ctt.geometry.PointCloud(torch.as_tensor(src), device=device)
+    t_full = ctt.geometry.PointCloud(torch.as_tensor(tgt), device=device)
+    sd, td = step("1 voxel_down_sample", lambda: (
+        s_full.voxel_down_sample(v), t_full.voxel_down_sample(v)))
+    out["voxels"] = (len(sd), len(td))
+    hyb = knn.KDTreeSearchParamHybrid
+    step("2 estimate_normals", lambda: (
+        sd.estimate_normals(hyb(2 * v, 30)),
+        td.estimate_normals(hyb(2 * v, 30))))
+    (sd, _), (td, _) = step("3 remove_statistical_outliers", lambda: (
+        sd.remove_statistical_outliers(20, 2.0),
+        td.remove_statistical_outliers(20, 2.0)))
+    out["down"] = (sd, td)
+    out["plane"], out["inliers"] = step(
+        "4 segment_plane", lambda: td.segment_plane(0.05, 3, 50))
+    rest = step("5a select_by_index",
+                lambda: td.select_by_index(out["inliers"], invert=True))
+    out["rest"] = rest
+    out["labels"] = step("5b cluster_dbscan",
+                         lambda: rest.cluster_dbscan(0.05, 10))
+    fs, ft = step("6 compute_fpfh_feature", lambda: (
+        reg.compute_fpfh_feature(sd, hyb(5 * v, 100)),
+        reg.compute_fpfh_feature(td, hyb(5 * v, 100))))
+    out["features"] = (fs, ft)
+    before = counts() if counts else None
+    out["fgr"] = step("7 fast_global_registration", lambda: (
+        reg.fast_global_registration(
+            sd, td, fs, ft, reg.FastGlobalRegistrationOption(
+                maximum_correspondence_distance=0.5 * v))))
+    if counts:
+        after = counts()
+        out["fgr_launches"] = {k: after[k] - before[k] for k in after}
+    out["full"] = (s_full, t_full)
+    if not refine:
+        return out, ms
+    step("8a estimate_normals (full target)",
+         lambda: t_full.estimate_normals(hyb(2 * v, 30)))
+    out["icp"] = step("8b registration_icp", lambda: reg.registration_icp(
+        s_full, t_full, 0.4 * v, out["fgr"].transformation,
+        reg.TransformationEstimationPointToPlane(),
+        reg.ICPConvergenceCriteria(1e-6, 1e-6, 30)))
+    return out, ms
+
+
+def icp_branch(np, source, target, max_dist, init):
+    """The branch `registration_icp` takes for point-to-plane on these
+    clouds: "brute force", "pooled", "run", "roll", "cell" or "hash"
+    (its planners, in its order)."""
+    from cupoch_tpu_torch.knn import cellgrid, poolgrid, rollgrid, rungrid
+    from cupoch_tpu_torch.registration import registration as regmod
+
+    if len(target) <= regmod._GRID_THRESHOLD:
+        return "brute force"
+    tgt = target.points.cpu().numpy()
+    src = source.points.cpu().numpy() @ init[:3, :3].T + init[:3, 3]
+    if poolgrid.plan_poolgrid(tgt, max_dist, query_points=src,
+                              est=2) is not None:
+        return "pooled"
+    if rungrid.plan_rungrid(tgt, max_dist, query_points=src,
+                            nch=4) is not None:
+        return "run"
+    if rollgrid.plan_rollgrid(tgt, max_dist) is not None:
+        return "roll"
+    if cellgrid.plan_cellgrid(tgt, max_dist) is not None:
+        return "cell"
+    return "brute force" if len(target) <= regmod._BRUTE_FALLBACK_MAX \
+        else "hash"
+
+
+def pose_errors(np, T, T_true, centroid):
+    """(rotation angle of T against T_true in rad, how far T moves
+    `centroid` from where T_true puts it, the largest translation
+    column gap), in f64."""
+    T, T_true = T.astype(np.float64), T_true.astype(np.float64)
+    R = T[:3, :3] @ T_true[:3, :3].T
+    rad = float(np.arccos(np.clip((np.trace(R) - 1.0) / 2.0, -1.0, 1.0)))
+    c = np.asarray(centroid, np.float64)
+    moved = float(np.linalg.norm((T[:3, :3] - T_true[:3, :3]) @ c
+                                 + T[:3, 3] - T_true[:3, 3]))
+    return rad, moved, float(np.abs(T[:3, 3] - T_true[:3, 3]).max())
+
+
+def check_global(np, out, T_true, v):
+    """The limits of the global-registration phase on one run's outputs;
+    raises on a miss. Returns a line of what was found."""
+    plane = out["plane"]
+    deg = float(np.degrees(np.arccos(min(1.0, abs(plane[2])
+                                         / np.linalg.norm(plane[:3])))))
+    td = out["down"][1]
+    z = td.points[:, 2].cpu().numpy()
+    floor = np.abs(z) <= 0.01                  # the floor's voxels
+    inl = np.zeros(len(td), bool)
+    inl[out["inliers"]] = True
+    share = float(inl[floor].mean())
+    if deg > PLANE_MAX_DEG or share < PLANE_FLOOR_SHARE:
+        raise AssertionError(f"plane {plane}: {deg:.3f} deg from z, "
+                             f"{share:.4f} of the floor's voxels")
+    # the six objects: six distinct clusters, each holding its box's
+    # points and no point outside it; the wall one more cluster; any
+    # other cluster a stray fragment
+    labels, pr = out["labels"], out["rest"].points.cpu().numpy()
+    found = []
+    for lo, hi in object_boxes(np):
+        inb = ((pr >= lo) & (pr <= hi)).all(1)
+        lab = labels[inb & (labels >= 0)]
+        top = np.bincount(lab).argmax() if lab.size else -1
+        if top < 0 or (lab == top).mean() < 0.99 \
+                or not inb[labels == top].all():
+            raise AssertionError(f"object box {lo}-{hi} is not one "
+                                 f"cluster of its own")
+        found.append(int(top))
+    if len(set(found)) != 6:
+        raise AssertionError(f"objects share clusters: {found}")
+    sizes = np.bincount(labels[labels >= 0])
+    others = np.setdiff1d(np.nonzero(sizes)[0], found)
+    wall = others[np.argmax(sizes[others])] if others.size else -1
+    # the wall's cluster: its points on the wall's surface (within 2 cm,
+    # ten times the noise) but for outliers that joined it as border
+    # points
+    wall_pts = pr[labels == wall]
+    on_wall = np.abs(wall_pts[:, 1] - _wall_y(np, wall_pts[:, 0])) <= 0.02
+    if wall < 0 or on_wall.mean() < 0.99:
+        raise AssertionError("the wall is not one cluster")
+    stray = sizes[np.setdiff1d(others, [wall])].sum() / max(sizes.sum(), 1)
+    if stray > STRAY_CLUSTER_SHARE:
+        raise AssertionError(f"stray clusters hold {stray:.4f} of the "
+                             f"clustered points")
+    # FGR: the rotation error, and how far the pose moves the source's
+    # centroid from where the true pose puts it (the translation column
+    # is the displacement of the room's corner, 2.9 m from the scene's
+    # centre, where each 0.01 rad of rotation error alone can move it
+    # 2.9 cm)
+    f_rad, f_c, f_t = pose_errors(np, out["fgr"].transformation, T_true,
+                                  out["full"][0].points.mean(0).cpu()
+                                  .numpy())
+    Tf = out["fgr"].transformation
+    if not np.isfinite(Tf).all() or f_rad > FGR_MAX_RAD or f_c > 2 * v:
+        raise AssertionError(f"FGR pose {f_rad:.4f} rad off, the "
+                             f"centroid {f_c:.4f} m off")
+    icp = out["icp"]
+    err = float(np.abs(icp.transformation - T_true).max())
+    if not np.isfinite(icp.transformation).all() or err > POSE_TOL \
+            or icp.fitness < REFINE_MIN_FITNESS:
+        raise AssertionError(f"refined pose error {err}, fitness "
+                             f"{icp.fitness}")
+    return (f"plane {deg:.4f} deg from z, inliers {len(out['inliers'])} "
+            f"({share:.4f} of {int(floor.sum())} floor voxels); "
+            f"{int((sizes > 0).sum())} clusters (objects {found}, wall "
+            f"{int(wall)}, stray share {stray:.5f}); FGR fitness "
+            f"{out['fgr'].fitness:.4f} rotation {f_rad:.5f} rad centroid "
+            f"{f_c:.5f} m (translation column {f_t:.5f} m); refined "
+            f"fitness {icp.fitness:.6f} "
+            f"rmse {icp.inlier_rmse:.6e} iterations {icp.iterations} pose "
+            f"error {err:.3e}")
+
+
+def global_registration(np, torch, ctt, reset_counts, counts, path_counts,
+                        card):
+    """Phase 4g: the global-registration pipeline at GLOBAL_POINTS a
+    cloud (one cold run, then GLOBAL_WARM_RUNS warm ones, each step's
+    ms), its limits and launch counts, then the card against the CPU on
+    GLOBAL_SMALL_POINTS."""
+    from cupoch_tpu_torch.knn import rungrid
+
+    t_phase = time.perf_counter()
+    v = GLOBAL_VOXEL
+    tgt, src, T_true = scene_pair(np, GLOBAL_POINTS)
+    marks = [("scene", time.perf_counter())]
+    torch.cuda.synchronize()
+    reset_counts()
+    out, cold = run_global_pipeline(torch, ctt, src, tgt, v, "cuda", counts)
+    path_counts["global registration"] = c = counts()
+    marks.append(("cold run", time.perf_counter()))
+    sd, td = out["down"]
+    fs, ft = out["features"]
+    # FGR's inputs and pose, for fgr_host_check.py (the JAX package's
+    # FGR on the same clouds and features, on a host with JAX)
+    os.makedirs("chiprun_out", exist_ok=True)
+    np.savez_compressed(
+        "chiprun_out/global_down.npz", src=sd.points.cpu().numpy(),
+        tgt=td.points.cpu().numpy(), fs=fs.data.cpu().numpy(),
+        ft=ft.data.cpu().numpy(), fgr=out["fgr"].transformation,
+        src_centroid=out["full"][0].points.mean(0).cpu().numpy())
+    line = check_global(np, out, T_true, v)
+    # FGR ends in evaluate_registration: one correspondence launch of
+    # kernel 2 when the run plan accepts the down-sampled target at
+    # 0.5v, else brute force and none
+    eplan = rungrid.plan_rungrid(td.points.cpu().numpy(), 0.5 * v,
+                                 margin=0.0, nch=0)
+    want_fgr = 1 if eplan is not None else 0
+    fl = out["fgr_launches"]
+    if fl["fused_corres"] != want_fgr or sum(fl.values()) != want_fgr:
+        raise AssertionError(f"FGR launches {fl}, expected "
+                             f"{want_fgr} correspondence launch")
+    s_full, t_full = out["full"]
+    branch = icp_branch(np, s_full, t_full, 0.4 * v,
+                        out["fgr"].transformation)
+    it = out["icp"].iterations
+    icp_c = {k: c[k] - fl[k] for k in c}
+    kernel = {"pooled": "slot", "roll": "nn", "cell": "nn"}.get(branch)
+    if kernel:
+        _expect("global registration, refinement", icp_c, it, kernel)
+    elif branch == "run":
+        if icp_c != {**{k: 0 for k in c}, "fused_gn": it,
+                     "fused_corres": 1}:
+            raise AssertionError(f"refinement launches {icp_c}")
+    elif any(icp_c.values()):
+        raise AssertionError(f"refinement launches {icp_c} on {branch}")
+    print(f"path: global registration, {GLOBAL_POINTS} points a cloud, "
+          f"voxel {v}: down-sampled {out['voxels']} -> {len(sd)}, "
+          f"{len(td)} after outlier removal; FPFH {fs.dimension()} x "
+          f"{fs.num()}, {ft.num()}; {line}; FGR launches {fl} (the run "
+          f"plan at 0.5v {'accepts' if eplan else 'rejects'} the target: "
+          f"{'kernel 2' if eplan else 'brute force'}); refinement on the "
+          f"{branch} branch, launches {icp_c}; path launches {c}")
+    marks.append(("checks", time.perf_counter()))
+    warm = []
+    for _ in range(GLOBAL_WARM_RUNS):
+        o, ms = run_global_pipeline(torch, ctt, src, tgt, v, "cuda")
+        check_global(np, o, T_true, v)
+        warm.append(ms)
+    steps = "; ".join(
+        f"{k} {cold[k]:.2f} / {statistics.median(w[k] for w in warm):.2f}"
+        for k in cold)
+    total_w = statistics.median(sum(w.values()) for w in warm)
+    print(f"timing: global registration ms, cold / median of "
+          f"{GLOBAL_WARM_RUNS} warm: {steps}; total {sum(cold.values()):.2f}"
+          f" / {total_w:.2f} on {card}")
+    marks.append(("warm runs and checks", time.perf_counter()))
+    profile(torch, "global registration pipeline, one warm run",
+            lambda: run_global_pipeline(torch, ctt, src, tgt, v, "cuda"),
+            total_w / 1e3, warm_up=False)
+    del out, o
+    marks.append(("profiled run", time.perf_counter()))
+    global_small(np, torch, ctt, v)
+    marks.append(("small check", time.perf_counter()))
+    phase_s = time.perf_counter() - t_phase
+    last = t_phase
+    parts = []
+    for name, t in marks:
+        parts.append(f"{name} {t - last:.1f}")
+        last = t
+    print(f"phase 4g: {phase_s:.1f} s ({', '.join(parts)})")
+    if phase_s > GLOBAL_PHASE_S:
+        raise AssertionError(f"phase 4g took {phase_s:.1f} s")
+
+
+def global_small(np, torch, ctt, v, dev="cuda"):
+    """The pipeline up to FGR on a GLOBAL_SMALL_POINTS version of the
+    scene on the card and on the port's CPU path (at this size every
+    neighbour search, FGR's scoring included, takes brute force; at 20k
+    points the voxel clouds pad past 20k and take the run grid, and the
+    CPU path's brute-force steps grow with the square of the size):
+    equal
+    voxel counts; then each later step on the card takes the CPU
+    path's input of that step, so a tie broken differently upstream
+    does not carry on: FPFH over the same neighbours (the card's)
+    equal within the tests' tolerance (`fpfh_moved_pairs`), FGR poses
+    within 1e-4 (the same draws), equal DBSCAN labels."""
+    from cupoch_tpu_torch.registration import feature as tfeat
+
+    reg, knn = ctt.registration, ctt.knn
+    tgt, src, _ = scene_pair(np, GLOBAL_SMALL_POINTS)
+    t0 = time.perf_counter()
+    cpu, _ = run_global_pipeline(torch, ctt, src, tgt, v, "cpu",
+                                 refine=False)
+    cpu_s = time.perf_counter() - t0
+    gpu, _ = run_global_pipeline(torch, ctt, src, tgt, v, dev,
+                                 refine=False)
+    if gpu["voxels"] != cpu["voxels"]:
+        raise AssertionError(f"voxel counts {gpu['voxels']} on the card, "
+                             f"{cpu['voxels']} on the CPU")
+    sd, td = cpu["down"]
+    sd_g, td_g = sd.to(dev), td.to(dev)
+    hyb = knn.KDTreeSearchParamHybrid(5 * v, 100)
+    moved_share, own_gap = 0.0, 0.0
+    for c_pc, g_pc, f_cpu in ((sd, sd_g, cpu["features"][0]),
+                              (td, td_g, cpu["features"][1])):
+        # both devices' histograms over the card's neighbours: each
+        # device's brute-force d2 (an expansion, rounded to about 4e-6 at
+        # these coordinates) would weigh a 2 cm neighbour's 1 / d2 1%
+        # apart
+        own = reg.compute_fpfh_feature(g_pc, hyb).data.T.cpu().numpy()
+        own_gap = max(own_gap, float(np.abs(own - f_cpu.data.T.numpy())
+                                     .max() / f_cpu.data.abs().max()))
+        idx, d2 = knn.search_neighbors(g_pc.points, g_pc.points, hyb)
+        spfh_g = tfeat._spfh(g_pc.points, g_pc.normals, idx)
+        f_gpu = tfeat._fpfh(spfh_g, idx, d2).cpu().numpy()
+        spfh_g = spfh_g.cpu().numpy()
+        idx, d2 = idx.cpu(), d2.cpu()
+        spfh_c = tfeat._spfh(c_pc.points, c_pc.normals, idx)
+        f_cpu = tfeat._fpfh(spfh_c, idx, d2).numpy()
+        spfh_c = spfh_c.numpy()
+        idx = idx.numpy()
+        cnt = (idx >= 0).sum(-1)
+        close, moved = fpfh_moved_pairs(np, spfh_c, spfh_g,
+                                        100.0 / np.maximum(cnt - 1.0, 1.0))
+        reached = moved | (moved[np.where(idx >= 0, idx, 0)]
+                           & (idx >= 0)).any(-1)
+        gap = np.abs(f_gpu - f_cpu)[~reached]
+        tol = 1e-4 * np.abs(f_cpu).max() + 1e-4 * np.abs(f_cpu[~reached])
+        odd = np.nonzero(~(close | moved))[0]
+        if odd.size or (gap > tol).any():
+            i = odd[0] if odd.size else None
+            raise AssertionError(
+                f"FPFH on the card and the CPU disagree: {odd.size} SPFH "
+                f"rows neither equal nor one moved pair"
+                + (f" (row {i}: {np.round(spfh_g[i] - spfh_c[i], 5)}, "
+                   f"weight {100.0 / max(cnt[i] - 1.0, 1.0):.5f})"
+                   if i is not None else "")
+                + f"; {int((gap > tol).any(-1).sum())} unreached FPFH rows "
+                f"beyond 1e-4, the largest gap {gap.max():.3e}")
+        moved_share = max(moved_share, float(moved.mean()))
+    fs, ft = cpu["features"]
+    fgr_g = reg.fast_global_registration(
+        sd_g, td_g, reg.Feature(fs.data.to(dev)),
+        reg.Feature(ft.data.to(dev)), reg.FastGlobalRegistrationOption(
+            maximum_correspondence_distance=0.5 * v))
+    d_fgr = float(np.abs(fgr_g.transformation
+                         - cpu["fgr"].transformation).max())
+    labels_g = cpu["rest"].to(dev).cluster_dbscan(0.05, 10)
+    d_e2e = float(np.abs(gpu["fgr"].transformation
+                         - cpu["fgr"].transformation).max())
+    print(f"small input (global registration, {GLOBAL_SMALL_POINTS} points "
+          f"a cloud): voxels {gpu['voxels']} on both; FPFH moved-pair rows "
+          f"{moved_share:.5f} (over each device's own neighbours the bins "
+          f"differ by up to {own_gap:.3e} of the largest); FGR pose "
+          f"gap {d_fgr:.3e}; DBSCAN labels "
+          f"equal {bool(np.array_equal(labels_g, cpu['labels']))}; end to "
+          f"end on each device, FGR pose gap {d_e2e:.3e}; the CPU path "
+          f"took {cpu_s:.1f} s")
+    if d_fgr > 1e-4 or not np.array_equal(labels_g, cpu["labels"]):
+        raise AssertionError("the card and the CPU disagree on the "
+                             "global-registration pipeline")
 
 
 def _time_ms(torch, fn, reps):
@@ -1565,22 +2105,24 @@ def main():
 
     small_inputs(np, ctt, poolgrid, rungrid, tgt, tn, src, T_true, crit,
                  pt2pl)
+    del tgt, tn, src, ftgt, ftn, fsrc, sheet, sheet_n, sheet_src
+    # 4g. global registration
+    global_registration(np, torch, ctt, reset_counts, counts, path_counts,
+                        card)
 
     # 5. per-kernel numbers, then the result
     print(json.dumps({"path_launches": path_counts,
                       "seconds": time.perf_counter() - t_start}))
     gn, exact = records   # one f32 kernel: both modes time alike
     pl = next(r for r in fused_recs if r["mode"] == "gn_PointToPlane")
-    fused_launches = sum(path_counts[p]["fused_corres"]
-                         + path_counts[p]["fused_gn"]
-                         for p in ("evaluate_registration",
-                                   "registration_icp fallback"))
+    # each kernel's launches over every path of phase 4
+    total = {k: sum(c[k] for c in path_counts.values()) for k in counts()}
     print(json.dumps({"kernels": [{
         "name": "poolgrid_slot",
         "route": "cuda",
         "source": "cupoch_tpu_torch/csrc/poolgrid_slot.cu",
         "replaces": "cupoch_tpu/knn/poolgrid.py:724",
-        "launches": launches,
+        "launches": total["slot"],
         "max_abs_err": max(gn["max_abs_err"], exact["max_abs_err"]),
         "ms": gn["ms"],
         "plain_ms": gn["plain_ms"],
@@ -1592,7 +2134,7 @@ def main():
         "route": "cuda",
         "source": "cupoch_tpu_torch/csrc/rungrid_fused.cu",
         "replaces": "cupoch_tpu/knn/rungrid.py:603",
-        "launches": fused_launches,
+        "launches": total["fused_corres"] + total["fused_gn"],
         "max_abs_err": max(r["max_abs_err"] for r in fused_recs),
         "ms": pl["ms"],
         "plain_ms": pl["plain_ms"],
@@ -1610,7 +2152,7 @@ def main():
         "route": "cuda",
         "source": "cupoch_tpu_torch/csrc/rungrid_gmm.cu",
         "replaces": "cupoch_tpu/knn/rungrid.py:1141",
-        "launches": path_counts["registration_filterreg"]["gmm"],
+        "launches": total["gmm"],
         "max_abs_err": gmm_rec["max_abs_err"],
         "ms": gmm_rec["ms"],
         "plain_ms": gmm_rec["plain_ms"],
@@ -1622,7 +2164,7 @@ def main():
         "route": "cuda",
         "source": "cupoch_tpu_torch/csrc/rollgrid_nn.cu",
         "replaces": "cupoch_tpu/knn/rollgrid.py:215",
-        "launches": sum(c["nn"] for c in path_counts.values()),
+        "launches": total["nn"],
         "max_abs_err": max(r["max_abs_err"] for r in nn_recs),
         "ms": nn_recs[0]["ms"],
         "plain_ms": nn_recs[0]["plain_ms"],
@@ -1912,16 +2454,21 @@ def small_inputs(np, ctt, poolgrid, rungrid, tgt, tn, src, T_true, crit,
                                  f"{cs['case']} input")
 
 
-def profile(torch, what, fn, loop_s):
+def profile(torch, what, fn, loop_s, warm_up=True):
     """Device time by kernel over one run of `fn` (kernels only, not the
-    operators that launch them), and the device's busy share of the
-    unprofiled run's wall time `loop_s`."""
+    operators that launch them), after a profiled warm-up run unless
+    `fn` is warm already, and the device's busy share of the unprofiled
+    run's wall time `loop_s`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with tprofile(activities=acts):
-        fn()                                   # profiler warm-up
+    # the device's activity only: the host's operator events are not
+    # read here, and recording them for the global-registration
+    # pipeline's tens of thousands of launches took longer than the run
+    acts = [ProfilerActivity.CUDA]
+    if warm_up:
+        with tprofile(activities=acts):
+            fn()
     with tprofile(activities=acts) as prof:
         fn()
 

@@ -39,7 +39,8 @@ def as_f32(x, device: torch.device, shape_suffix=(3,)) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         a = x.to(device=device, dtype=torch.float32)
     else:
-        a = torch.as_tensor(np.asarray(x, np.float32), device=device)
+        # a copy: numpy views of other arrays may be read-only
+        a = torch.tensor(np.asarray(x, np.float32), device=device)
     if a.ndim == 1 and a.numel() == 0:
         a = a.reshape((0,) + tuple(shape_suffix))
     return a
@@ -59,10 +60,27 @@ class Geometry:
 
 class Geometry3D(Geometry):
     """Base for 3D geometries on one device (`device` defaults to
-    "cuda", which must then be available). The bound and transform
-    methods of the JAX package's base come with the slices that use
-    them."""
+    "cuda", which must then be available), with the bounds of the
+    points a subclass names in `_primary_points`."""
 
     def __init__(self, geometry_type: GeometryType, device=None):
         super().__init__(geometry_type, 3)
         self.device = resolve_device(device)
+
+    def _primary_points(self) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _reduce(self, fn) -> np.ndarray:
+        pts = self._primary_points()
+        if pts.shape[0] == 0:
+            return np.zeros(3, np.float32)
+        return fn(pts).cpu().numpy()
+
+    def get_min_bound(self) -> np.ndarray:
+        return self._reduce(lambda p: p.amin(0))
+
+    def get_max_bound(self) -> np.ndarray:
+        return self._reduce(lambda p: p.amax(0))
+
+    def get_center(self) -> np.ndarray:
+        return self._reduce(lambda p: p.mean(0))

@@ -104,15 +104,20 @@ def plan_cellgrid(points: np.ndarray, radius: float,
     if cap > cap_limit:
         return None
     cap = max(8, _round_up(cap, 8))
-    oz = occupied_lin % dims[2]
-    oy = (occupied_lin // dims[2]) % dims[1]
-    ox = occupied_lin // (dims[1] * dims[2])
-    nbr = (np.stack([ox, oy, oz], -1)[:, None, :]
-           + np.asarray(OFFSETS)[None]).reshape(-1, 3)
-    inb = ((nbr >= 0) & (nbr < np.asarray(dims))).all(-1)
-    nbr = nbr[inb]
-    active = np.unique((nbr[:, 0] * dims[1] + nbr[:, 1]) * dims[2]
-                       + nbr[:, 2]).astype(np.int64)
+    # the occupied cells dilated by one ring within the grid: three 1-D
+    # dilations of the occupancy volume (the 27-cell cube is separable),
+    # in linear-id order: the reference's sorted unique of the 27
+    # neighbours of every occupied cell, without sorting them
+    act = (counts > 0).reshape(dims)
+    for ax in range(3):
+        grown = act.copy()
+        lo = [slice(None)] * 3
+        hi = [slice(None)] * 3
+        lo[ax], hi[ax] = slice(0, -1), slice(1, None)
+        grown[tuple(lo)] |= act[tuple(hi)]
+        grown[tuple(hi)] |= act[tuple(lo)]
+        act = grown
+    active = np.flatnonzero(act).astype(np.int64)
     n_active = _round_up(max(8, active.size), 8)
     kc = _round_up(27 * cap, 128)
     if n_active * kc * LANE_BYTES + n_cells * 4 > mem_budget_bytes:

@@ -10,8 +10,10 @@ query:  probe the 27 neighbouring cells, take up to `bucket_cap`
 
 Hash collisions only add candidates from unrelated cells, which the
 distance test filters; a bucket holding more than `bucket_cap` points
-drops the rest, as in the reference. Queries run in tiles so the
-[tile, 27 * cap] candidate block stays small.
+drops the rest, as in the reference. Queries run in tiles whose
+[tile, 27 * cap] candidate block holds about `_BLOCK` slots (some 30
+bytes a slot across its index, point, distance and mask tensors): few
+enough launches on the card, a bounded block on the CPU.
 """
 from __future__ import annotations
 
@@ -23,12 +25,17 @@ from ..utility.shape import INVALID_INDEX
 from .rollgrid import OFFSETS
 
 _P1, _P2, _P3 = 73856093, 19349663, 83492791  # spatial-hash primes
+_BLOCK = 1 << 25  # candidate slots of one query tile
 
 
 class HashGrid:
     """Built search structure: points [N, 3] (padded), sorted_indices
     [N] (point order by bucket), bucket_start / bucket_count [T] int32,
-    cell_size [] f32, table_size T and bucket_cap ints."""
+    cell_size [] f32, table_size T and bucket_cap ints. A query takes
+    `width` = min(bucket_cap, the fullest bucket's count) slots a
+    bucket: the slots past every bucket's count hold no candidate, so
+    a sparse table (a surface scan) scans fewer slots and finds the
+    same candidates."""
 
     def __init__(self, points, sorted_indices, bucket_start, bucket_count,
                  cell_size, table_size: int, bucket_cap: int = 32):
@@ -39,6 +46,8 @@ class HashGrid:
         self.cell_size = cell_size
         self.table_size = int(table_size)
         self.bucket_cap = int(bucket_cap)
+        fullest = int(bucket_count.max()) if bucket_count.numel() else 0
+        self.width = max(1, min(self.bucket_cap, fullest))
 
 
 def _cell_hash(cells: torch.Tensor, table_size: int) -> torch.Tensor:
@@ -82,9 +91,9 @@ def build_grid(points: torch.Tensor, cell_size,
 
 
 def _candidates_for(grid: HashGrid, q_tile: torch.Tensor):
-    """(cand_idx [T, 27*cap] int64, cand_valid [T, 27*cap] bool) for a
-    [T, 3] query tile."""
-    cap = grid.bucket_cap
+    """(cand_idx [T, 27*width] int64, cand_valid [T, 27*width] bool) for
+    a [T, 3] query tile."""
+    cap = grid.width
     dev = q_tile.device
     offs = torch.tensor(OFFSETS, dtype=torch.int32, device=dev)
     nbr = _cells(q_tile, grid.cell_size)[:, None, :] + offs[None]
@@ -105,6 +114,11 @@ def _candidates_for(grid: HashGrid, q_tile: torch.Tensor):
     return cand.reshape(T, 27 * cap), valid.reshape(T, 27 * cap)
 
 
+def _tiles(grid: HashGrid, queries: torch.Tensor):
+    """`queries` split into tiles of about `_BLOCK` candidate slots."""
+    return queries.split(max(1024, _BLOCK // (27 * grid.width)))
+
+
 def _tile_d2(grid: HashGrid, q_tile):
     cand, valid = _candidates_for(grid, q_tile)
     diff = q_tile[:, None, :] - grid.points[cand]
@@ -117,13 +131,13 @@ def _r2(radius, dev):
 
 
 def query_nn(grid: HashGrid, queries: torch.Tensor, radius,
-             query_mask: Optional[torch.Tensor] = None, tile: int = 2048
+             query_mask: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """1-NN within `radius`: (index [Q] int32 or -1, dist2 [Q], inf for
     none). Ties go to the first candidate in probe order."""
     r2 = _r2(radius, queries.device)
     idxs, d2s = [], []
-    for q in queries.split(tile):
+    for q in _tiles(grid, queries):
         cand, valid, d2 = _tile_d2(grid, q)
         d2 = torch.where(valid & (d2 <= r2), d2, float("inf"))
         bd2, best = d2.min(-1)
@@ -146,15 +160,14 @@ def _cat(idxs, d2s, shape, dev):
 
 
 def query_hybrid(grid: HashGrid, queries: torch.Tensor, radius,
-                 max_nn: int, query_mask: Optional[torch.Tensor] = None,
-                 tile: int = 1024):
+                 max_nn: int, query_mask: Optional[torch.Tensor] = None):
     """k-NN within radius (cupoch SearchHybrid): (idx [Q, max_nn] int32,
     dist2 [Q, max_nn], counts [Q] int32), sorted by distance, -1 / inf
     fill."""
     dev = queries.device
     r2 = _r2(radius, dev)
     idxs, d2s = [], []
-    for q in queries.split(tile):
+    for q in _tiles(grid, queries):
         cand, valid, d2 = _tile_d2(grid, q)
         d2 = torch.where(valid & (d2 <= r2), d2, float("inf"))
         k = min(max_nn, d2.shape[-1])
@@ -178,12 +191,12 @@ def query_hybrid(grid: HashGrid, queries: torch.Tensor, radius,
     return idx, d2, cnt
 
 
-def query_radius_count(grid: HashGrid, queries: torch.Tensor, radius,
-                       tile: int = 2048) -> torch.Tensor:
+def query_radius_count(grid: HashGrid, queries: torch.Tensor, radius
+                       ) -> torch.Tensor:
     """[Q] int32 number of points within `radius` of each query."""
     r2 = _r2(radius, queries.device)
     out = [(valid & (d2 <= r2)).sum(-1).to(torch.int32)
            for _, valid, d2 in (_tile_d2(grid, q)
-                                for q in queries.split(tile))]
+                                for q in _tiles(grid, queries))]
     return torch.cat(out) if out else torch.empty(
         (0,), dtype=torch.int32, device=queries.device)

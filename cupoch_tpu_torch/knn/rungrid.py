@@ -593,13 +593,17 @@ def knn_rungrid(grid: RunGrid, queries, k: int, qcap: int, radius,
     cp = qsoa.shape[0]
     r2 = torch.as_tensor(radius, dtype=torch.float32).to(dev) ** 2
     centers = cell_centers(grid.dims, grid.origin, grid.cell_size, cp)
-    d2_out = torch.empty((cp, qcap, k), dtype=torch.float32, device=dev)
-    idx_out = torch.empty((cp, qcap, k), dtype=torch.int32, device=dev)
+    # only the cells that hold a query (a surface leaves most empty)
+    busy = torch.nonzero((qidx >= 0).any(-1))[:, 0]
+    nb = busy.shape[0]
+    d2_out = torch.empty((nb, qcap, k), dtype=torch.float32, device=dev)
+    idx_out = torch.empty((nb, qcap, k), dtype=torch.int32, device=dev)
     step = max(1, _KNN_CHUNK_BYTES // (qcap * KC * 4))
-    for c0 in range(0, cp, step):
+    for c0 in range(0, nb, step):
         sl = slice(c0, c0 + step)
-        c, ni, qi = grid.cand[sl], grid.negidx[sl], qidx[sl]
-        e = qsoa[sl, 0:3] - centers[sl, :, None]
+        rows = busy[sl]
+        c, ni, qi = grid.cand[rows], grid.negidx[rows], qidx[rows]
+        e = qsoa[rows, 0:3] - centers[rows, :, None]
         qn = (e * e).sum(1)
         d2a = c[:, 3, None, :] + e[:, 0, :, None] * c[:, 0, None, :]
         d2a = d2a + e[:, 1, :, None] * c[:, 1, None, :]
@@ -620,8 +624,9 @@ def knn_rungrid(grid: RunGrid, queries, k: int, qcap: int, radius,
         d2_out[sl] = torch.where(ok, dk.clamp(min=0.0), float("inf"))
         idx_out[sl] = torch.where(ok, -fik, float(INVALID_INDEX)) \
             .to(torch.int32)
-    return (scatter_to_source(qidx, idx_out, Q, INVALID_INDEX),
-            scatter_to_source(qidx, d2_out, Q, float("inf")))
+    qb = qidx[busy]
+    return (scatter_to_source(qb, idx_out, Q, INVALID_INDEX),
+            scatter_to_source(qb, d2_out, Q, float("inf")))
 
 
 _GRID_CACHE_MAX = 4

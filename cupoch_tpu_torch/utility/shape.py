@@ -39,3 +39,39 @@ def pad_axis0(x: torch.Tensor, capacity: int, fill=0) -> torch.Tensor:
 def valid_mask(count: int, capacity: int, device=None) -> torch.Tensor:
     """Boolean mask of shape [capacity], true for the first ``count``."""
     return torch.arange(capacity, device=device) < count
+
+
+def compact_by_mask(x, mask):
+    """Keep the rows of ``x`` where ``mask`` is true."""
+    return x[torch.as_tensor(mask, device=x.device)]
+
+
+def masked_min(x: torch.Tensor, mask: torch.Tensor, dim=None,
+               big=float("inf")) -> torch.Tensor:
+    v = torch.where(mask, x, big)
+    return v.min() if dim is None else v.amin(dim)
+
+
+def masked_max(x: torch.Tensor, mask: torch.Tensor, dim=None,
+               small=float("-inf")) -> torch.Tensor:
+    v = torch.where(mask, x, small)
+    return v.max() if dim is None else v.amax(dim)
+
+
+def masked_sum(x: torch.Tensor, mask: torch.Tensor, dim=None
+               ) -> torch.Tensor:
+    v = torch.where(mask, x, torch.zeros((), dtype=x.dtype,
+                                         device=x.device))
+    return v.sum() if dim is None else v.sum(dim)
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=None
+                ) -> torch.Tensor:
+    s = masked_sum(x, mask, dim)
+    c = mask.sum() if dim is None else mask.sum(dim)
+    return s / c.clamp(min=1)
+
+
+def moveaxis_mask(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A [N] mask reshaped to broadcast against x of shape [N, ...]."""
+    return mask.reshape(mask.shape + (1,) * (x.ndim - mask.ndim))

@@ -7,6 +7,7 @@ The JAX GN passes score in one bf16 pass and flip about 2% of winners
 loops are compared by their converged pose and fitness, never by
 per-iteration sums.
 """
+import importlib
 import os
 import subprocess
 import sys
@@ -35,7 +36,6 @@ from cupoch_tpu_torch.knn import rollgrid as trollg
 from cupoch_tpu_torch.knn import rungrid as trg
 from cupoch_tpu_torch.registration import estimation as test_
 from cupoch_tpu_torch.registration import fused_icp as ticp
-from cupoch_tpu_torch.registration import kabsch as tkabsch
 from cupoch_tpu_torch.registration.estimation import (
     TransformationEstimationType as TET,
 )
@@ -43,6 +43,9 @@ from cupoch_tpu_torch.utility import eigen as teigen
 from cupoch_tpu_torch.utility import transforms as ttf
 from cupoch_tpu.utility import eigen as jeigen
 from cupoch_tpu.utility import transforms as jtf
+
+# the module: the package exports the function `kabsch` under its name
+tkabsch = importlib.import_module("cupoch_tpu_torch.registration.kabsch")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ESTS = ["PointToPoint", "PointToPlane", "SymmetricMethod"]
@@ -468,7 +471,14 @@ def test_torch_entry_points_need_a_device():
 # ---------------------------------------------------------------------------
 
 def test_torch_port_imports_no_jax():
-    code = ("import sys; import cupoch_tpu_torch, chip_smoke; "
+    """Every module of the port (also those imported only lazily) and
+    chip_smoke.py import neither jax nor the JAX package."""
+    code = ("import importlib, pkgutil, sys; import cupoch_tpu_torch, "
+            "chip_smoke; "
+            "mods = [m.name for m in pkgutil.walk_packages("
+            "cupoch_tpu_torch.__path__, 'cupoch_tpu_torch.')]; "
+            "[importlib.import_module(m) for m in mods]; "
+            "assert len(mods) > 30, mods; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'cupoch_tpu' "
             "or m.startswith('cupoch_tpu.')]; "

@@ -1,0 +1,55 @@
+"""Turn the JAX package's objects into the PyTorch port's through
+numpy, so both packages compute on identical inputs: point clouds
+(with normals, colours and covariances), features and the FGR option.
+A helper of the port's parity tests (tests/test_torch_*.py)."""
+import numpy as np
+
+import cupoch_tpu_torch.registration as treg
+from cupoch_tpu_torch.geometry import PointCloud as TPointCloud
+
+
+def cloud(jpcd, device="cpu") -> TPointCloud:
+    out = TPointCloud(np.asarray(jpcd.points), device=device)
+    for name in ("normals", "colors", "covariances"):
+        v = getattr(jpcd, name)
+        if v is not None:
+            setattr(out, name, np.asarray(v))
+    return out
+
+
+def feature(jfeat, device="cpu") -> treg.Feature:
+    return treg.Feature(np.asarray(jfeat.data), device=device)
+
+
+def fgr_option(jopt) -> treg.FastGlobalRegistrationOption:
+    return treg.FastGlobalRegistrationOption(**vars(jopt))
+
+
+def inject_jax_fgr_choices(monkeypatch):
+    """Make the port's FGR use the JAX package's tuple draws
+    (`PRNGKey(0)`) and its f32 feature-space nearest neighbours, which
+    differ from the port's f64 picks on near-ties: both packages then
+    optimise over the same pairs."""
+    import importlib
+
+    import jax
+    import jax.numpy as jnp
+    import torch
+    from cupoch_tpu.registration import feature as jfeat
+
+    tfgr = importlib.import_module(
+        "cupoch_tpu_torch.registration.fast_global_registration")
+
+    def draws(ncorr, n_trials):
+        return torch.as_tensor(np.array(jax.random.randint(
+            jax.random.PRNGKey(0), (n_trials, 3), 0, ncorr)),
+            dtype=torch.int64)
+
+    def feature_nn(q, d):
+        nn = jfeat._feature_nn(jnp.asarray(q.cpu().numpy()),
+                               jnp.asarray(d.cpu().numpy()))
+        return torch.as_tensor(np.array(nn), dtype=torch.int64,
+                               device=q.device)
+
+    monkeypatch.setattr(tfgr, "tuple_draws", draws)
+    monkeypatch.setattr(tfgr, "_feature_nn", feature_nn)

@@ -74,6 +74,24 @@ Phases, each printed on its own line:
        pose, and the launches of the branches taken; then the same
        pipeline up to FGR on 10k points on the card against the CPU
        path;
+     - 4k. RGB-D odometry and KinectFusion (`rgbd_phase`): a rendered
+       room (`render_room`: a floor, three walls and three boxes with a
+       smooth colour texture) seen at 640x480 with PrimeSense
+       intrinsics from a camera 0.4 m up looking down 15 deg, along 20
+       frames of a known trajectory, 1 cm and 0.3 deg a frame, as a
+       sensor gives it (uint8 colour, uint16 depth in mm): hybrid,
+       colour and weighted odometry on every consecutive pair, held to
+       the true motion; `KinfuPipeline` at
+       KinfuOption's defaults (4 levels, a 512^3 volume over 8 m with
+       RGB8 colour, sdf_trunc 0.05, 20 ICP iterations a level) but an
+       ICP threshold of 0.1, held to the trajectory, its last raycast
+       to the true depth and its marching-cubes mesh to the scene's
+       surfaces; each warm frame's stage split, the ICP branch of each
+       level, peak memory and one profiled frame; one more frame at the
+       default threshold 0.5; KinFu over 5 frames from a level camera,
+       its raycast's share within 1 cm printed with no limit; then two
+       frames through KinFu at 64x48 and odometry at 640x480 on the
+       card against the CPU path;
   5. one JSON line of per-kernel numbers, then the result line.
 
 Any failure raises and exits non-zero. Without a card it exits
@@ -730,6 +748,589 @@ def global_small(np, torch, ctt, v, dev="cuda"):
     if d_fgr > 1e-4 or not np.array_equal(labels_g, cpu["labels"]):
         raise AssertionError("the card and the CPU disagree on the "
                              "global-registration pipeline")
+
+
+# the RGB-D scene (phase 4k): a room in metres (x right, y down, z
+# forward): the floor y = 0.8, the back wall z = 2.8 and the side walls
+# x = -1.5 and x = 1.6 as (axis, value), and three boxes on the floor as
+# (low, high) corners; a smooth colour texture of world position on
+# every surface. The first camera stands ROOM_CAMERA_HEIGHT above the
+# room's origin and looks down by ROOM_CAMERA_PITCH_DEG, as a handheld
+# scan of objects on a floor does (a level camera sees the box tops and
+# the floor's far part under 5-20 deg, where the projective TSDF keeps
+# few observed voxels below a surface: PERF.md §6)
+ROOM_PLANES = ((1, 0.8), (2, 2.8), (0, -1.5), (0, 1.6))
+ROOM_BOXES = (((-1.0, 0.3, 1.8), (-0.5, 0.8, 2.3)),
+              ((0.2, 0.2, 2.0), (0.8, 0.8, 2.5)),
+              ((-0.25, 0.5, 1.2), (0.25, 0.8, 1.6)))
+ROOM_CAMERA_HEIGHT = 0.4
+ROOM_CAMERA_PITCH_DEG = 15.0
+RGBD_FRAMES = 20
+# the camera's motion a frame: 1 cm and 0.3 deg about a tilted axis
+RGBD_STEP_SHIFT = (0.005, -0.003, 0.0083)
+RGBD_STEP_AXIS = (0.3, 1.0, 0.2)
+RGBD_STEP_DEG = 0.3
+RGBD_DEPTH_SCALE = 1000.0     # the sensor's uint16 depth in mm
+ODO_T_MAX = 5e-3              # hybrid odometry, a pair: translation (m)
+ODO_R_MAX = 5e-3              # and ||R_err - I||_F
+ODO_WEIGHTED_T_MAX = 1e-2
+KINFU_DISTANCE = 0.1          # examples/kinfu_demo.py's ICP threshold
+KINFU_RMSE_MAX = 0.01         # trajectory translation RMSE (m)
+KINFU_ROT_MAX_DEG = 0.5
+RAYCAST_TOL = 0.01            # final raycast depth against the scene
+RAYCAST_SHARE_MIN = 0.95
+MESH_TOL = 0.016              # about one 8/512 m voxel
+MESH_SHARE_MIN = 0.99
+KINFU_PROFILED_FRAME = 10
+LEVEL_FRAMES = 5              # KinFu from a level camera, printed only
+KINFU_PHASE_S = 120.0
+
+
+def room_view(np, pitch_deg=ROOM_CAMERA_PITCH_DEG,
+              height=ROOM_CAMERA_HEIGHT):
+    """The first camera's camera-to-room pose, `height` above the room's
+    origin and looking down by `pitch_deg`, in f64."""
+    a = np.radians(pitch_deg)
+    P = np.eye(4)
+    P[1:3, 1:3] = [[np.cos(a), np.sin(a)], [-np.sin(a), np.cos(a)]]
+    P[1, 3] = -height
+    return P
+
+
+def rgbd_pose(np, k):
+    """Camera-to-world pose of frame k in the first camera's frame (the
+    world of KinFu's estimates): k steps of RGBD_STEP_DEG about
+    RGBD_STEP_AXIS and RGBD_STEP_SHIFT, in f64."""
+    axis = np.asarray(RGBD_STEP_AXIS) / np.linalg.norm(RGBD_STEP_AXIS)
+    K = np.asarray([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                    [-axis[1], axis[0], 0]])
+    a = np.radians(RGBD_STEP_DEG)
+    step = np.eye(4)
+    step[:3, :3] = np.eye(3) + np.sin(a) * K + (1 - np.cos(a)) * K @ K
+    step[:3, 3] = RGBD_STEP_SHIFT
+    return np.linalg.matrix_power(step, k)
+
+
+def room_texture(np, p):
+    """uint8 RGB of world points p [..., 3]."""
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+    rgb = np.stack([
+        0.5 + 0.2 * np.sin(6.0 * x + 2.0 * z) * np.cos(5.0 * y)
+        + 0.15 * np.sin(3.0 * z - 4.0 * x),
+        0.5 + 0.2 * np.cos(5.5 * y - 3.0 * x) * np.sin(4.5 * z)
+        + 0.1 * np.sin(7.0 * x),
+        0.5 + 0.25 * np.sin(4.0 * x + 6.0 * y + 3.0 * z)], -1)
+    return np.round(np.clip(rgb, 0.0, 1.0) * 255.0).astype(np.uint8)
+
+
+def render_room(np, pose, width, height, fx, fy, cx, cy):
+    """The room seen from camera-to-world `pose` through a pinhole
+    camera, at each pixel's centre: (RGB uint8 [H, W, 3], z-depth f32
+    [H, W] in metres, 0 where a ray meets nothing)."""
+    u, v = np.meshgrid(np.arange(width, dtype=np.float64),
+                       np.arange(height, dtype=np.float64))
+    d_cam = np.stack([(u - cx) / fx, (v - cy) / fy, np.ones_like(u)], -1)
+    R, o = pose[:3, :3], pose[:3, 3]
+    d = d_cam @ R.T                    # a ray's parameter is its z-depth
+    best = np.full((height, width), np.inf)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        for axis, value in ROOM_PLANES:
+            t = (value - o[axis]) / d[..., axis]
+            best = np.where((t > 0) & (t < best), t, best)
+        for lo, hi in ROOM_BOXES:
+            t1 = (np.asarray(lo) - o) / d
+            t2 = (np.asarray(hi) - o) / d
+            t_in = np.nanmax(np.minimum(t1, t2), -1)
+            t_out = np.nanmin(np.maximum(t1, t2), -1)
+            hit = (t_out >= t_in) & (t_in > 0) & (t_in < best)
+            best = np.where(hit, t_in, best)
+    found = np.isfinite(best)
+    t = np.where(found, best, 0.0)
+    rgb = room_texture(np, o + d * t[..., None])
+    rgb[~found] = 0
+    return rgb, t.astype(np.float32)
+
+
+def room_distance(np, p):
+    """Distance of points p [N, 3] in the first camera's frame to the
+    nearest surface of the room (its planes and its boxes' faces), in
+    f64."""
+    P0 = room_view(np)
+    p = np.asarray(p, np.float64) @ P0[:3, :3].T + P0[:3, 3]
+    dist = np.full(p.shape[0], np.inf)
+    for axis, value in ROOM_PLANES:
+        dist = np.minimum(dist, np.abs(p[:, axis] - value))
+    for lo, hi in ROOM_BOXES:
+        lo, hi = np.asarray(lo), np.asarray(hi)
+        outside = np.linalg.norm(np.maximum(np.maximum(lo - p, p - hi), 0.0),
+                                 axis=-1)
+        inside = np.minimum(p - lo, hi - p).min(-1)
+        dist = np.minimum(dist, np.where(inside > 0, inside, outside))
+    return dist
+
+
+def room_depth(np, pose, intrinsic, view=None):
+    """(RGB, z-depth) of the room seen from `pose` in the frame of the
+    first camera, whose camera-to-room pose is `view` (None:
+    `room_view`)."""
+    fx, fy = intrinsic.get_focal_length()
+    cx, cy = intrinsic.get_principal_point()
+    view = room_view(np) if view is None else view
+    return render_room(np, view @ pose, intrinsic.width, intrinsic.height,
+                       fx, fy, cx, cy)
+
+
+def room_frame(np, ctt, k, intrinsic, device, view=None):
+    """Frame k of the trajectory from the first camera `view` as the
+    sensor gives it, RGB uint8 and depth uint16 in mm: the colour and
+    depth Images on `device`."""
+    rgb, depth = room_depth(np, rgbd_pose(np, k), intrinsic, view)
+    mm = np.round(depth * RGBD_DEPTH_SCALE).astype(np.uint16)
+    Image = ctt.geometry.Image
+    return Image(rgb, device=device), Image(mm, device=device)
+
+
+def odometry_pair_error(np, T_est, T_true):
+    """(translation error in m, ||R_err - I||_F) of T_est against
+    T_true."""
+    E = np.linalg.inv(np.asarray(T_true, np.float64)) \
+        @ np.asarray(T_est, np.float64)
+    return (float(np.linalg.norm(E[:3, 3])),
+            float(np.linalg.norm(E[:3, :3] - np.eye(3))))
+
+
+class KinfuClock:
+    """Times KinFu's stages inside `process_frame`, each between two
+    synchronizations of the card: the pipeline's surface measurement,
+    each pyramid level's `registration_icp` (with its iterations and the
+    kernel launches it made), the volume's integrate and each level's
+    raycast (with the steps its march took). `frames` holds a list of
+    (stage, level, ms, extra) a timed frame; `icp_args` each level's
+    last ICP inputs. A context manager;
+    while `active` is False, calls pass through untimed."""
+
+    def __init__(self, torch, pipe, counts):
+        import importlib
+
+        self.torch, self.pipe, self.counts = torch, pipe, counts
+        self.kmod = importlib.import_module("cupoch_tpu_torch.kinfu.kinfu")
+        self.frames, self.icp_args, self.active = [], {}, True
+        self._pyramid = []
+
+    def _wrap(self, name, fn, level_of):
+        def timed(*args, **kwargs):
+            if not self.active:
+                return fn(*args, **kwargs)
+            self.torch.cuda.synchronize()
+            before = self.counts()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            level, extra = level_of(args), {}
+            if name == "surface measurement":
+                self._pyramid = out[2]
+            elif name == "raycast":
+                extra = {"steps": self.pipe.volume.last_march_steps}
+            elif name == "icp":
+                after = self.counts()
+                self.icp_args[level] = args[:4]
+                extra = {"iterations": out.iterations, "launches": {
+                    k: after[k] - before[k] for k in after
+                    if after[k] != before[k]}}
+            self.frames[-1].append((name, level, ms, extra))
+            return out
+        return timed
+
+    def __enter__(self):
+        pipe, vol = self.pipe, self.pipe.volume
+        widths = [pipe.intrinsic.scale(0.5 ** i).width
+                  for i in range(pipe.option.num_pyramid_levels)]
+        self._icp = self.kmod.registration_icp
+        self.kmod.registration_icp = self._wrap(
+            "icp", self._icp, lambda a: next(
+                i for i, p in enumerate(self._pyramid) if p is a[0]))
+        pipe.surface_measurement = self._wrap(
+            "surface measurement", pipe.surface_measurement, lambda a: None)
+        vol.integrate = self._wrap("integrate", vol.integrate,
+                                   lambda a: None)
+        vol.raycast = self._wrap("raycast", vol.raycast,
+                                 lambda a: widths.index(a[0].width))
+        return self
+
+    def frame(self, fn):
+        """fn() (one process_frame), its stages timed when active."""
+        if self.active:
+            self.frames.append([])
+        return fn()
+
+    def __exit__(self, *exc):
+        self.kmod.registration_icp = self._icp
+        del self.pipe.surface_measurement
+        del self.pipe.volume.integrate, self.pipe.volume.raycast
+        return False
+
+
+def stage_split(frames):
+    """Median ms of each (stage, level) over `frames`, in the order of
+    the first frame."""
+    keys = [(s, lv) for s, lv, _, _ in frames[0]]
+    return {k: statistics.median(ms for f in frames for s, lv, ms, _ in f
+                                 if (s, lv) == k) for k in keys}
+
+
+def _split_line(split):
+    names = {"surface measurement": "surface measurement",
+             "icp": "ICP level", "integrate": "integrate",
+             "raycast": "raycast level"}
+    return "; ".join(f"{names[s]}{'' if lv is None else f' {lv}'} "
+                     f"{ms:.2f}" for (s, lv), ms in split.items())
+
+
+def odometry_paths(np, torch, ctt, intr, frames, card):
+    """Hybrid, colour and weighted RGB-D odometry over every consecutive
+    pair of the trajectory, held to the pair's true motion; returns a
+    line of their ms."""
+    odo = ctt.odometry
+    rgbd = [ctt.geometry.RGBDImage.create_from_color_and_depth(c, d)
+            for c, d in frames]
+    variants = (
+        ("hybrid", lambda s, t: odo.compute_rgbd_odometry(s, t, intr)),
+        ("colour", lambda s, t: odo.compute_rgbd_odometry(
+            s, t, intr, jacobian=odo.RGBDOdometryJacobianFromColorTerm())),
+        ("weighted", lambda s, t: odo.compute_weighted_rgbd_odometry(
+            s, t, intr)))
+    timing = []
+    for name, fn in variants:
+        ms, t_err, r_err = [], [], []
+        for i in range(len(rgbd) - 1):
+            T_true = np.linalg.inv(rgbd_pose(np, i + 1)) @ rgbd_pose(np, i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(rgbd[i], rgbd[i + 1])
+            ms.append((time.perf_counter() - t0) * 1e3)
+            ok, T, info = out[0], out[1], out[-1]
+            te, re = odometry_pair_error(np, T, T_true)
+            t_err.append(te)
+            r_err.append(re)
+            min_eig = float(np.linalg.eigvalsh(info.astype(np.float64))
+                            .min())
+            if not ok or not np.isfinite(T).all() or min_eig <= 0.0:
+                raise AssertionError(f"odometry {name}, pair {i}: success "
+                                     f"{ok}, information eigenvalue "
+                                     f"{min_eig}")
+        print(f"path: RGB-D odometry ({name}), {len(ms)} pairs at "
+              f"{intr.width}x{intr.height}: translation error max "
+              f"{max(t_err):.3e} mean {np.mean(t_err):.3e} m, "
+              f"||R_err - I||_F max {max(r_err):.3e}; information "
+              f"matrices positive definite")
+        if name == "hybrid" and (max(t_err) > ODO_T_MAX
+                                 or max(r_err) > ODO_R_MAX):
+            raise AssertionError("hybrid odometry missed its bounds")
+        if name == "weighted" and max(t_err) > ODO_WEIGHTED_T_MAX:
+            raise AssertionError("weighted odometry missed its bound")
+        timing.append(f"{name} {ms[0]:.1f} / "
+                      f"{statistics.median(ms[1:]):.1f}")
+    return (f"timing: RGB-D odometry ms a pair, cold / median of "
+            f"{len(rgbd) - 2} warm: {'; '.join(timing)} on {card}")
+
+
+def model_depth(np, pipe, intr):
+    """z-depth [H, W] of the pipeline's model raycast from its pose, NaN
+    where no ray hits."""
+    pose = pipe.cur_pose.astype(np.float64)
+    extrinsic = np.linalg.inv(pipe.cur_pose).astype(np.float32)
+    pts = pipe.volume.raycast(intr, extrinsic, pipe.option.sdf_trunc,
+                              project_valid_depth_only=False) \
+        .points.cpu().numpy().astype(np.float64)
+    return (pts @ np.linalg.inv(pose)[:3, :3].T + np.linalg.inv(pose)[:3, 3]
+            )[:, 2].reshape(intr.height, intr.width)
+
+
+def depth_share(np, z, truth, cutoff):
+    """Share of the pixels whose true depth lies in (0, cutoff] where z
+    is within RAYCAST_TOL of it."""
+    inside = (truth > 0) & (truth <= cutoff)
+    close = np.isfinite(z) & (np.abs(z - truth) <= RAYCAST_TOL)
+    return float(close[inside].mean())
+
+
+def kinfu_checks(np, torch, pipe, poses, intr):
+    """The trajectory, the final raycast and the mesh against the
+    scene; raises on a miss. Returns (a line of what was found, the
+    mesh's extraction ms)."""
+    t_err = [float(np.linalg.norm(P[:3, 3] - rgbd_pose(np, k)[:3, 3]))
+             for k, P in enumerate(poses)]
+    r_deg = []
+    for k, P in enumerate(poses):
+        R = P[:3, :3].astype(np.float64) @ rgbd_pose(np, k)[:3, :3].T
+        r_deg.append(float(np.degrees(np.arccos(np.clip(
+            (np.trace(R) - 1.0) / 2.0, -1.0, 1.0)))))
+    rmse = float(np.sqrt(np.mean(np.square(t_err))))
+    if rmse > KINFU_RMSE_MAX or max(r_deg) > KINFU_ROT_MAX_DEG:
+        raise AssertionError(f"KinFu trajectory: translation RMSE {rmse}, "
+                             f"rotation error {max(r_deg)} deg")
+    # the model seen from the last estimated pose, as the pipeline sees
+    # it for the next frame, against the last frame's true depth; and,
+    # to tell tracking from reconstruction, against the scene seen from
+    # the estimated pose
+    pose = pipe.cur_pose.astype(np.float64)
+    z = model_depth(np, pipe, intr)
+    truth = {name: room_depth(np, P, intr)[1]
+             for name, P in (("true", rgbd_pose(np, len(poses) - 1)),
+                             ("estimated", pose))}
+    share = {name: depth_share(np, z, t, pipe.option.depth_cutoff)
+             for name, t in truth.items()}
+    inside = (truth["true"] > 0) & (truth["true"]
+                                    <= pipe.option.depth_cutoff)
+    hits = float(np.isfinite(z)[inside].mean())
+    os.makedirs("chiprun_out", exist_ok=True)
+    np.savez_compressed("chiprun_out/kinfu_raycast.npz", raycast=z,
+                        true_pose=truth["true"],
+                        estimated_pose=truth["estimated"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mesh = pipe.extract_triangle_mesh()
+    torch.cuda.synchronize()
+    mesh_ms = (time.perf_counter() - t0) * 1e3
+    verts = mesh.vertices.cpu().numpy()
+    near = float((room_distance(np, verts) <= MESH_TOL).mean()) \
+        if len(verts) else 0.0
+    line = (f"trajectory translation RMSE {rmse:.3e} m (max "
+            f"{max(t_err):.3e}), rotation error max {max(r_deg):.4f} deg; "
+            f"final raycast: hits on {hits:.5f} of {int(inside.sum())} "
+            f"pixels, within {RAYCAST_TOL} m of the true depth on "
+            f"{share['true']:.5f} (of the scene seen from the estimated "
+            f"pose on {share['estimated']:.5f}); mesh {len(verts)} vertices "
+            f"{int(mesh.triangles.shape[0])} triangles, {near:.5f} within "
+            f"{MESH_TOL} m of the scene")
+    if share["true"] < RAYCAST_SHARE_MIN or not len(verts) \
+            or near < MESH_SHARE_MIN:
+        raise AssertionError(f"KinFu reconstruction missed its bounds: "
+                             f"{line}")
+    return line, mesh_ms
+
+
+def kinfu_level_view(np, ctt, pipe, intr, dev="cuda"):
+    """KinFu from an empty volume over LEVEL_FRAMES frames of the
+    trajectory seen from a level camera at the room's origin, whose
+    grazing views of the floor and the box tops the projective TSDF
+    observes poorly (PERF.md §7): a line with the share of its last
+    raycast within RAYCAST_TOL of the true depth, which no limit holds
+    (RAYCAST_SHARE_MIN holds the tilted view)."""
+    view = room_view(np, 0.0, 0.0)
+    pipe.reset()
+    pipe.option.distance_threshold = KINFU_DISTANCE
+    tracked = 0
+    for k in range(LEVEL_FRAMES):
+        c, d = room_frame(np, ctt, k, intr, dev, view)
+        tracked += bool(pipe.process_frame(
+            ctt.geometry.RGBDImage.create_from_color_and_depth(
+                c, d, convert_rgb_to_intensity=False)))
+    truth = room_depth(np, rgbd_pose(np, LEVEL_FRAMES - 1), intr, view)[1]
+    share = depth_share(np, model_depth(np, pipe, intr), truth,
+                        pipe.option.depth_cutoff)
+    return (f"KinFu level view (no limit), {LEVEL_FRAMES} frames from a "
+            f"level camera at the room's origin: {tracked} tracked; the "
+            f"last raycast within {RAYCAST_TOL} m of the true depth on "
+            f"{share:.5f} of the pixels (the tilted view is held to "
+            f"{RAYCAST_SHARE_MIN})")
+
+
+def kinfu_branches(np, clock):
+    """The branch each level's last ICP call took."""
+    return {lv: icp_branch(np, src, tgt, thr, init)
+            for lv, (src, tgt, thr, init) in sorted(clock.icp_args.items())}
+
+
+def kinfu_config(ctt):
+    """(PrimeSense intrinsics at 640x480, the default KinfuOption with
+    the ICP threshold KINFU_DISTANCE: 4 levels, a 512^3 volume over 8 m
+    with RGB8 colour, sdf_trunc 0.05, 20 ICP iterations a level)."""
+    cam = ctt.camera
+    return (cam.PinholeCameraIntrinsic(
+        cam.PinholeCameraIntrinsicParameters.PrimeSenseDefault),
+        ctt.kinfu.KinfuOption(distance_threshold=KINFU_DISTANCE))
+
+
+def rgbd_phase(np, torch, ctt, reset_counts, counts, path_counts, card,
+               dev="cuda"):
+    """Phase 4k: RGB-D odometry and KinectFusion on the room seen
+    through `kinfu_config`, along RGBD_FRAMES frames of a known
+    trajectory; the stage split, the mesh, peak memory and the busy
+    share of one profiled frame; one frame at KinfuOption's default
+    threshold 0.5; then the card against the CPU on small frames."""
+    t_phase = time.perf_counter()
+    marks = []
+    # KinFu filters the colour pyramid channel by channel, which the
+    # image filter logs a warning for on every level of every frame
+    console = ctt.utility.console
+    verbosity = console.get_verbosity_level()
+    console.set_verbosity_level(console.VerbosityLevel.Error)
+    intr, opt = kinfu_config(ctt)
+    frames = [room_frame(np, ctt, k, intr, dev) for k in range(RGBD_FRAMES)]
+    marks.append(("scene", time.perf_counter()))
+    print(odometry_paths(np, torch, ctt, intr, frames, card))
+    marks.append(("odometry", time.perf_counter()))
+
+    pipe = ctt.kinfu.KinfuPipeline(intr, opt, device=dev)
+    kin = [ctt.geometry.RGBDImage.create_from_color_and_depth(
+        c, d, convert_rgb_to_intensity=False) for c, d in frames]
+    state_gb = sum(t.numel() * t.element_size() for t in (
+        pipe.volume.tsdf, pipe.volume.weight, pipe.volume.color)) / 1e9
+    poses, walls = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 1e9 - state_gb
+    reset_counts()
+    with KinfuClock(torch, pipe, counts) as clock:
+        for k, frame in enumerate(kin):
+            clock.active = k != KINFU_PROFILED_FRAME
+            if not clock.active:
+                profile(torch, f"KinFu frame {k}, {intr.width}x"
+                        f"{intr.height}, {opt.tsdf_resolution}^3",
+                        lambda: pipe.process_frame(frame),
+                        statistics.median(walls[2:]) / 1e3, warm_up=False)
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if not clock.frame(lambda: pipe.process_frame(frame)):
+                    raise AssertionError(f"KinFu lost frame {k}")
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            poses.append(pipe.cur_pose.copy())
+        path_counts["kinfu"] = c = counts()
+        peak_frames = torch.cuda.max_memory_allocated() / 1e9
+        marks.append(("KinFu frames", time.perf_counter()))
+        clock.active = False
+        line, mesh_ms = kinfu_checks(np, torch, pipe, poses, intr)
+        peak_mesh = torch.cuda.max_memory_allocated() / 1e9
+        branches = kinfu_branches(np, clock)
+        last = {lv: e for s, lv, _, e in clock.frames[-1] if s == "icp"}
+        steps = {}
+        for f in clock.frames:
+            for s, lv, _, e in f:
+                if s == "raycast":
+                    steps.setdefault(lv, []).append(e["steps"])
+        max_steps = int(np.ceil(opt.tsdf_length * np.sqrt(3.0)
+                                / (0.5 * opt.sdf_trunc))) + 1
+        print(f"path: KinFu, {RGBD_FRAMES} frames at {intr.width}x"
+              f"{intr.height}, a {opt.tsdf_resolution}^3 volume over "
+              f"{opt.tsdf_length} m ({state_gb:.3f} GB of tsdf, weight and "
+              f"colour), ICP threshold {opt.distance_threshold}, "
+              f"iterations {opt.icp_iterations}: every frame tracked; "
+              f"{line}; last frame's ICP levels: " + "; ".join(
+                  f"{lv} {branches[lv]} ({len(clock.icp_args[lv][1])} "
+                  f"target points, {last[lv]['iterations']} iterations, "
+                  f"launches {last[lv]['launches']})" for lv in branches)
+              + f"; path launches {c}; raycast march steps a level "
+              f"(of {max_steps}) min / median / max over the timed frames: "
+              + "; ".join(f"{lv} {min(v)} / {statistics.median(v)} / "
+                          f"{max(v)}" for lv, v in steps.items()))
+        for lv, br in branches.items():
+            it = last[lv]["iterations"]
+            kernel = {"pooled": "slot", "roll": "nn", "cell": "nn"}.get(br)
+            want = {kernel: it + 1} if kernel else \
+                {"fused_gn": it, "fused_corres": 1} if br == "run" else {}
+            if last[lv]["launches"] != want:
+                raise AssertionError(f"KinFu level {lv} on the {br} branch "
+                                     f"made launches {last[lv]['launches']}")
+        warm = clock.frames[2:]
+        print(f"timing: KinFu ms a warm frame (median of {len(warm)}): "
+              f"{_split_line(stage_split(warm))}; frame wall "
+              f"{statistics.median(walls[2:]):.2f} (frame 0 "
+              f"{walls[0]:.2f}, frame 1 {walls[1]:.2f}); mesh extraction "
+              f"{mesh_ms:.2f}; peak memory {peak_frames - held:.3f} GB "
+              f"over the frames, {peak_mesh - held:.3f} GB with the mesh "
+              f"(besides {held:.3f} GB that earlier phases hold) on "
+              f"{card}")
+        marks.append(("checks and mesh", time.perf_counter()))
+
+        # one more frame at KinfuOption's default threshold
+        opt.distance_threshold = 0.5
+        clock.active = True
+        c20, d20 = room_frame(np, ctt, RGBD_FRAMES, intr, dev)
+        f20 = ctt.geometry.RGBDImage.create_from_color_and_depth(
+            c20, d20, convert_rgb_to_intensity=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = clock.frame(lambda: pipe.process_frame(f20))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        err = float(np.linalg.norm(pipe.cur_pose[:3, 3]
+                                   - rgbd_pose(np, RGBD_FRAMES)[:3, 3]))
+        branches = kinfu_branches(np, clock)
+        icp = {lv: e for s, lv, _, e in clock.frames[-1] if s == "icp"}
+        print(f"timing: KinFu frame {RGBD_FRAMES} at the default ICP "
+              f"threshold 0.5: tracked {ok}, translation error {err:.3e} "
+              f"m; {_split_line(stage_split(clock.frames[-1:]))}; "
+              f"frame wall {wall:.2f} ms; ICP branches " + "; ".join(
+                  f"{lv} {branches[lv]} ({icp[lv]['iterations']} "
+                  f"iterations, launches {icp[lv]['launches']})"
+                  for lv in branches))
+    marks.append(("threshold 0.5 frame", time.perf_counter()))
+    print(kinfu_level_view(np, ctt, pipe, intr, dev))
+    del pipe, clock, kin, frames
+    marks.append(("level view", time.perf_counter()))
+    rgbd_small(np, torch, ctt, intr, dev)
+    console.set_verbosity_level(verbosity)
+    marks.append(("small check", time.perf_counter()))
+    phase_s = time.perf_counter() - t_phase
+    parts, last_t = [], t_phase
+    for name, t in marks:
+        parts.append(f"{name} {t - last_t:.1f}")
+        last_t = t
+    print(f"phase 4k: {phase_s:.1f} s ({', '.join(parts)})")
+    if phase_s > KINFU_PHASE_S:
+        raise AssertionError(f"phase 4k took {phase_s:.1f} s")
+
+
+def small_kinfu_option(ctt):
+    """KinFu at 64x48 on a 64^3 volume over 4 m round the room, two
+    levels."""
+    return ctt.kinfu.KinfuOption(
+        num_pyramid_levels=2, tsdf_length=4.0, tsdf_resolution=64,
+        sdf_trunc=0.2, tsdf_origin=(0.0, 0.0, 1.5), distance_threshold=0.3,
+        icp_iterations=[5, 5])
+
+
+def rgbd_small(np, torch, ctt, intr, dev="cuda"):
+    """Two frames of the room through KinFu at 64x48 (64^3, two levels)
+    and hybrid odometry on that pair at the full width of `intr` with
+    the default OdometryOption, on the card and on the CPU: KinFu poses
+    within 1e-4, tsdf within 1e-5, equal mesh vertex counts; odometry
+    poses within 1e-4 (at 64x48 that pose moves by up to 4e-3 when the
+    source depth moves by one ulp, at 640x480 by about 1e-6)."""
+    small = intr.scale(0.1)
+    create = ctt.geometry.RGBDImage.create_from_color_and_depth
+    out = {}
+    for name in (dev, "cpu"):
+        pipe = ctt.kinfu.KinfuPipeline(small, small_kinfu_option(ctt),
+                                       device=name)
+        for k in (0, 2):
+            c, d = room_frame(np, ctt, k, small, name)
+            if not pipe.process_frame(create(
+                    c, d, convert_rgb_to_intensity=False)):
+                raise AssertionError(f"small KinFu lost frame {k} on "
+                                     f"{name}")
+        mesh = pipe.extract_triangle_mesh()
+        gray = [create(*room_frame(np, ctt, k, intr, name)) for k in (0, 2)]
+        odo = ctt.odometry.compute_rgbd_odometry(gray[0], gray[1], intr)
+        out[name] = (pipe.cur_pose, pipe.volume.tsdf.cpu().numpy(),
+                     len(mesh.vertices), odo)
+    g, c = out[dev], out["cpu"]
+    d_pose = float(np.abs(g[0] - c[0]).max())
+    d_tsdf = float(np.abs(g[1] - c[1]).max())
+    d_odo = float(np.abs(g[3][1] - c[3][1]).max())
+    print(f"small input (KinFu, 2 frames at 64x48, 64^3; odometry on that "
+          f"pair at {intr.width}x{intr.height}): cuda vs cpu pose gap "
+          f"{d_pose:.3e}, tsdf gap {d_tsdf:.3e}, mesh vertices {g[2]} vs "
+          f"{c[2]}; odometry success {g[3][0]} / {c[3][0]}, pose gap "
+          f"{d_odo:.3e}")
+    if d_pose > 1e-4 or d_tsdf > 1e-5 or g[2] != c[2] \
+            or not (g[3][0] and c[3][0]) or d_odo > 1e-4:
+        raise AssertionError("the card and the CPU disagree on KinFu or "
+                             "odometry")
 
 
 def _time_ms(torch, fn, reps):
@@ -2109,6 +2710,8 @@ def main():
     # 4g. global registration
     global_registration(np, torch, ctt, reset_counts, counts, path_counts,
                         card)
+    # 4k. RGB-D odometry and KinectFusion
+    rgbd_phase(np, torch, ctt, reset_counts, counts, path_counts, card)
 
     # 5. per-kernel numbers, then the result
     print(json.dumps({"path_launches": path_counts,

@@ -11,6 +11,16 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from . import geometry, knn, registration, utility  # noqa: E402
+from . import (  # noqa: E402
+    camera,
+    geometry,
+    integration,
+    kinfu,
+    knn,
+    odometry,
+    registration,
+    utility,
+)
 
-__all__ = ["geometry", "knn", "registration", "utility"]
+__all__ = ["camera", "geometry", "integration", "kinfu", "knn", "odometry",
+           "registration", "utility"]

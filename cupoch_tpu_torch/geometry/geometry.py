@@ -84,3 +84,12 @@ class Geometry3D(Geometry):
 
     def get_center(self) -> np.ndarray:
         return self._reduce(lambda p: p.mean(0))
+
+
+class Geometry2D(Geometry):
+    """Base for images on one device (`device` defaults to "cuda",
+    which must then be available)."""
+
+    def __init__(self, geometry_type: GeometryType, device=None):
+        super().__init__(geometry_type, 2)
+        self.device = resolve_device(device)

@@ -2,7 +2,8 @@
 colors and covariances as float32 tensors on one device, with the
 point-cloud operations of the JAX package's `PointCloud`: transforms,
 selection and cropping, down-sampling, outlier removal, filters,
-normals and their orientation, DBSCAN and RANSAC plane segmentation.
+normals and their orientation, DBSCAN and RANSAC plane segmentation,
+and the depth, RGB-D and disparity factories (`pointcloud_factory`).
 The methods call the functions of `pointcloud_ops` on the cloud's
 device and return results at their exact size; index and label
 results come back as numpy arrays, as in the JAX package."""
@@ -342,6 +343,39 @@ class PointCloud(Geometry3D):
                                       distance_threshold)
         return (plane.cpu().numpy(),
                 torch.nonzero(inl)[:, 0].cpu().numpy())
+
+    # -- factories (pointcloud_factory) ----------------------------------
+    @staticmethod
+    def create_from_depth_image(depth, intrinsic, extrinsic=None,
+                                depth_scale: float = 1000.0,
+                                depth_trunc: float = 1000.0,
+                                stride: int = 1, device=None
+                                ) -> "PointCloud":
+        from . import pointcloud_factory as factory
+
+        return factory.create_from_depth_image(
+            depth, intrinsic, extrinsic, depth_scale, depth_trunc, stride,
+            device)
+
+    @staticmethod
+    def create_from_rgbd_image(image, intrinsic, extrinsic=None,
+                               project_valid_depth_only: bool = True,
+                               depth_cutoff: float = -1.0,
+                               compute_normals: bool = False
+                               ) -> "PointCloud":
+        from . import pointcloud_factory as factory
+
+        return factory.create_from_rgbd_image(
+            image, intrinsic, extrinsic, project_valid_depth_only,
+            depth_cutoff, compute_normals)
+
+    @staticmethod
+    def create_from_disparity(disp, color, left_intrinsic, right_intrinsic,
+                              baseline: float, device=None) -> "PointCloud":
+        from . import pointcloud_factory as factory
+
+        return factory.create_from_disparity(
+            disp, color, left_intrinsic, right_intrinsic, baseline, device)
 
     # -- numpy bridge -------------------------------------------------------
     def to_numpy(self) -> np.ndarray:

@@ -1,15 +1,41 @@
-"""Small linear solves for the Gauss-Newton step (cupoch
-utility/eigen.h: SolveLinearSystemPSD, SolveJacobianSystemAndObtain-
-ExtrinsicMatrix), and the closed-form batched 3x3 eigen helpers of
+"""The J^T J / J^T r reduction and the small linear solves of the
+Gauss-Newton step (cupoch utility/eigen.h: ComputeJTJandJTr,
+SolveLinearSystemPSD, SolveJacobianSystemAndObtainExtrinsicMatrix),
+and the closed-form batched 3x3 eigen helpers of
 normal estimation and Generalized ICP (utility/eigenvalue.h)."""
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 
 from . import transforms
+
+
+def compute_jtj_jtr(
+    jac_res_fn: Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]],
+    data: torch.Tensor,
+    mask: torch.Tensor = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """J^T J and J^T r over the rows of `data` (cupoch
+    ComputeJTJandJTr). `jac_res_fn(row) -> (J [..., D], r [...])` may
+    give several residuals a row, stacked on a leading axis; it is
+    mapped over the rows with `torch.func.vmap`. Rows where `mask` is
+    false add nothing. Returns (JTJ [D, D], JTr [D], the sum of the
+    squared residuals, the residual count), in f32 with TF32 off."""
+    J, r = torch.func.vmap(jac_res_fn)(data)
+    if J.ndim == 2:
+        J = J[:, None, :]
+        r = r[:, None]
+    if mask is not None:
+        m = mask.reshape(mask.shape + (1,) * (r.ndim - 1)).to(J.dtype)
+        J = J * m[..., None]
+        r = r * m
+    Jf = J.reshape(-1, J.shape[-1])
+    rf = r.reshape(-1)
+    count = mask.sum() * r.shape[-1] if mask is not None else rf.shape[0]
+    return Jf.T @ Jf, Jf.T @ rf, (rf * rf).sum(), count
 
 
 def _chol_solve_unrolled(A: torch.Tensor, b: torch.Tensor):

@@ -1,6 +1,7 @@
 """Turn the JAX package's objects into the PyTorch port's through
 numpy, so both packages compute on identical inputs: point clouds
-(with normals, colours and covariances), features and the FGR option.
+(with normals, colours and covariances), images and RGB-D pairs,
+camera intrinsics, features and the FGR option.
 A helper of the port's parity tests (tests/test_torch_*.py)."""
 import numpy as np
 
@@ -53,3 +54,24 @@ def inject_jax_fgr_choices(monkeypatch):
 
     monkeypatch.setattr(tfgr, "tuple_draws", draws)
     monkeypatch.setattr(tfgr, "_feature_nn", feature_nn)
+
+
+def image(jimg, device="cpu"):
+    """The port's Image of a JAX package Image (same data and dtype)."""
+    from cupoch_tpu_torch.geometry import Image
+
+    return Image(np.asarray(jimg.data), device=device)
+
+
+def rgbd(jrgbd, device="cpu"):
+    from cupoch_tpu_torch.geometry import RGBDImage
+
+    return RGBDImage(image(jrgbd.color, device), image(jrgbd.depth, device))
+
+
+def intrinsic(jintr):
+    """The port's PinholeCameraIntrinsic of a JAX package one."""
+    from cupoch_tpu_torch.camera import PinholeCameraIntrinsic
+
+    return PinholeCameraIntrinsic.from_dict(jintr.to_dict())
+

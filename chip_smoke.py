@@ -92,6 +92,21 @@ Phases, each printed on its own line:
        its raycast's share within 1 cm printed with no limit; then two
        frames through KinFu at 64x48 and odometry at 640x480 on the
        card against the CPU path;
+     - 4r. robotics (`robotics_phase`): the same room mapped into an
+       OccupancyGrid at cupoch's defaults (0.05 m, 512^3) from phase
+       4k's 20 depth frames and from 50 scans of a simulated Hokuyo
+       UTM-30LX (1081 steps over 270 deg, exact ray hits) through the
+       scan-shadow filter, each insert timed with its DDA steps; the
+       distance field at 512^3 held to a host float64 brute force on 10k
+       voxels; Pos3DPlanner at its defaults on a 0.05 m lattice of the
+       room's free box, 10k seeded edges' cut state held to a float64
+       segment-box test, its path held to scipy's Dijkstra, to the
+       inflated occupied boxes and to the distance field; a 6-joint arm
+       (UR5's link offsets) in 512 seeded configurations held to a
+       float64 containment oracle, one link swept at 0.02 m against the
+       occupied voxels on the bucket route, held to a host dense oracle;
+       no kernel launches; then every module at 64^3 on the card against
+       the CPU, identical;
   5. one JSON line of per-kernel numbers, then the result line.
 
 Any failure raises and exits non-zero. Without a card it exits
@@ -786,6 +801,68 @@ LEVEL_FRAMES = 5              # KinFu from a level camera, printed only
 KINFU_PHASE_S = 120.0
 
 
+# the robotics phase (4r): a 6-joint arm with UR5's published link
+# offsets (ur_description's ur5 URDF: shoulder 0.089159 m up, upper arm
+# 0.425 m, forearm 0.39225 m, wrists 0.13585 / 0.1197 / 0.093 / 0.09465 /
+# 0.0823 m) and box, cylinder and sphere collision shapes, standing on the
+# room's floor
+ARM_LINKS = (
+    ("base_link", '<cylinder radius="0.075" length="0.09"/>',
+     '0 0 0.045', '0 0 0'),
+    ("shoulder_link", '<cylinder radius="0.06" length="0.15"/>',
+     '0 0 0', '0 0 0'),
+    ("upper_arm_link", '<box size="0.09 0.09 0.425"/>',
+     '0 0 0.2125', '0 0 0'),
+    ("forearm_link", '<box size="0.07 0.07 0.392"/>', '0 0 0.196', '0 0 0'),
+    ("wrist_1_link", '<cylinder radius="0.04" length="0.12"/>',
+     '0 0 0', '1.570796 0 0'),
+    ("wrist_2_link", '<cylinder radius="0.04" length="0.12"/>',
+     '0 0 0', '0 0 0'),
+    ("wrist_3_link", '<sphere radius="0.045"/>', '0 0.05 0', '0 0 0'),
+)
+ARM_JOINTS = (   # (origin xyz, origin rpy, axis) of joint_0 .. joint_5
+    ("0 0 0.089159", "0 0 0", "0 0 1"),
+    ("0 0.13585 0", "0 1.570796 0", "0 1 0"),
+    ("0 -0.1197 0.425", "0 0 0", "0 1 0"),
+    ("0 0 0.39225", "0 1.570796 0", "0 1 0"),
+    ("0 0.093 0", "0 0 0", "0 0 1"),
+    ("0 0 0.09465", "0 0 0", "0 1 0"),
+)
+
+
+def _arm_urdf():
+    links = []
+    for name, geom, xyz, rpy in ARM_LINKS:
+        shape = (f'<origin xyz="{xyz}" rpy="{rpy}"/><geometry>{geom}'
+                 f'</geometry>')
+        links.append(f'  <link name="{name}"><collision>{shape}</collision>'
+                     f'<visual>{shape}</visual></link>')
+    links.append('  <link name="tool0"/>')
+    joints = []
+    for k, (xyz, rpy, axis) in enumerate(ARM_JOINTS):
+        joints.append(
+            f'  <joint name="joint_{k}" type="revolute"><parent link='
+            f'"{ARM_LINKS[k][0]}"/><child link="{ARM_LINKS[k + 1][0]}"/>'
+            f'<origin xyz="{xyz}" rpy="{rpy}"/><axis xyz="{axis}"/></joint>')
+    joints.append('  <joint name="tool_joint" type="fixed"><parent link='
+                  '"wrist_3_link"/><child link="tool0"/><origin '
+                  'xyz="0 0.0823 0"/></joint>')
+    return '<robot name="arm">\n' + "\n".join(links + joints) \
+        + "\n</robot>\n"
+
+
+ARM_URDF = _arm_urdf()
+ARM_BASE_XYZ = (0.55, 0.8, 1.45)    # on the floor, by box 3, room frame
+
+
+def arm_base(np):
+    """The arm base's pose in the room (y down): its z axis up."""
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = [[1, 0, 0], [0, 0, -1], [0, 1, 0]]
+    T[:3, 3] = ARM_BASE_XYZ
+    return T
+
+
 def room_view(np, pitch_deg=ROOM_CAMERA_PITCH_DEG,
               height=ROOM_CAMERA_HEIGHT):
     """The first camera's camera-to-room pose, `height` above the room's
@@ -1331,6 +1408,587 @@ def rgbd_small(np, torch, ctt, intr, dev="cuda"):
             or not (g[3][0] and c[3][0]) or d_odo > 1e-4:
         raise AssertionError("the card and the CPU disagree on KinFu or "
                              "odometry")
+
+
+# the robotics phase (4r): the room of phase 4k mapped into cupoch's
+# default OccupancyGrid (0.05 m, 512^3) from 20 depth frames and 50 scans
+# of a simulated Hokuyo UTM-30LX (its published spec: 1081 steps over
+# 270 deg, 0.25 deg apart, 30 m), its distance field, a roadmap through
+# the room's free box and the 6-joint arm above checked against it
+ROBOTICS_PHASE_S = 60.0
+LASER_STEPS = 1081
+LASER_FOV_DEG = 270.0
+LASER_RANGE = 30.0
+LASER_SCANS = 50             # DEFAULT_NUM_MAX_SCANS
+LASER_HEIGHT = 0.4           # m above the floor
+LASER_START_XZ = (0.05, 0.3)
+LASER_STEP = 0.02            # m along +z between scans
+# laser_filters' ScanShadowsFilter settings: min and max angle, window,
+# neighbours
+LASER_SHADOW = (10.0, 170.0, 1, 20)
+ROOM_OPEN_Z = 0.0            # the room's open side: a ray crossing z = 0
+# the roadmap's box (room frame, y down: 0.1-0.7 m above the floor) and
+# spacing (the grid's voxel), and the path's ends: behind box 1, past box
+# 2's far side
+LATTICE_BOX = ((-1.4, 0.1, 0.3), (1.5, 0.7, 2.7))
+LATTICE_SPACING = 0.05
+PLAN_START = (-0.75, 0.4, 2.6)
+PLAN_GOAL = (1.2, 0.4, 2.25)
+PLAN_REL_TOL = 1e-5
+ARM_CONFIGS = 512
+# the base and shoulder links stand on the floor: the moving links are
+# checked
+ARM_MOVING_LINKS = ("upper_arm_link", "forearm_link", "wrist_1_link",
+                    "wrist_2_link", "wrist_3_link")
+ARM_SWEEP_VOXEL = 0.02
+ARM_SWEEP_LINK = "forearm_link"
+EDT_SAMPLES = 10_000
+EDGE_SAMPLES = 10_000        # roadmap edges held to the float64 oracle
+# a touch closer than this to a face is a tie the float32 tests may call
+# either way: the oracles below leave it out and count it
+TOUCH_TOL = 1e-6
+
+
+def laser_scan(np, k):
+    """(ranges [LASER_STEPS] float32, scanner-to-room pose float32) of
+    scan k: the exact ray-plane and ray-box hits in float64, NaN where a
+    ray leaves through the open side or passes LASER_RANGE. The scanner
+    looks along +z with its z axis up (room -y)."""
+    floor_y = dict(ROOM_PLANES)[1]
+    o = np.asarray([LASER_START_XZ[0], floor_y - LASER_HEIGHT,
+                    LASER_START_XZ[1] + k * LASER_STEP])
+    ang = np.radians(-LASER_FOV_DEG / 2 + np.arange(LASER_STEPS)
+                     * LASER_FOV_DEG / (LASER_STEPS - 1))
+    d = np.stack([-np.sin(ang), np.zeros_like(ang), np.cos(ang)], -1)
+    best = np.full(LASER_STEPS, np.inf)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        for axis, value in ROOM_PLANES:
+            t = (value - o[axis]) / d[:, axis]
+            inside = (o[2] + t * d[:, 2]) >= ROOM_OPEN_Z
+            best = np.where((t > 0) & (t < best) & inside, t, best)
+        for lo, hi in ROOM_BOXES:
+            t1 = (np.asarray(lo) - o) / d
+            t2 = (np.asarray(hi) - o) / d
+            t_in = np.nanmax(np.minimum(t1, t2), -1)
+            t_out = np.nanmin(np.maximum(t1, t2), -1)
+            hit = (t_out >= t_in) & (t_in > 0) & (t_in < best)
+            best = np.where(hit, t_in, best)
+    ranges = np.where(best <= LASER_RANGE, best, np.nan).astype(np.float32)
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = [[0, -1, 0], [0, 0, -1], [1, 0, 0]]
+    T[:3, 3] = o
+    return ranges, T
+
+
+def robotics_frames(np, ctt, intr, frames, dev):
+    """(PointCloud in the room frame, camera centre) of frames 0 ..
+    frames-1 of phase 4k's trajectory, from the sensor's uint16 depth."""
+    for k in range(frames):
+        _, depth = room_frame(np, ctt, k, intr, dev)
+        P = room_view(np) @ rgbd_pose(np, k)
+        yield ctt.geometry.PointCloud.create_from_depth_image(
+            depth, intr, np.linalg.inv(P).astype(np.float32),
+            depth_scale=RGBD_DEPTH_SCALE), P[:3, 3].astype(np.float32)
+
+
+def _sync_ms(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def laser_buffer(np, ctt, scans, dev):
+    """A LaserScanBuffer of the first `scans` scans, with their poses."""
+    buf = ctt.geometry.LaserScanBuffer(
+        LASER_STEPS, LASER_SCANS, -np.radians(LASER_FOV_DEG / 2),
+        np.radians(LASER_FOV_DEG / 2), device=dev)
+    for k in range(scans):
+        buf.add_ranges(*laser_scan(np, k))
+    return buf
+
+
+def edt_check(np, dt, occ_idx, n, seed=7):
+    """Distances and nearest sites of n seeded voxels round the occupied
+    ones against a host float64 brute force over the occupied list
+    (exact integer squared distances): the number that differ."""
+    rng = np.random.default_rng(seed)
+    R = dt.resolution
+    lo = np.clip(occ_idx.min(0) - 20, 0, R - 1)
+    hi = np.clip(occ_idx.max(0) + 20, 0, R - 1)
+    s = rng.integers(lo, hi + 1, (n, 3))
+    occ = occ_idx.astype(np.float64)
+    on = (occ * occ).sum(-1)
+    d2 = np.empty(n, np.int64)
+    for a in range(0, n, 1000):
+        q = s[a:a + 1000].astype(np.float64)
+        m = (q * q).sum(-1)[:, None] + on[None] - 2.0 * q @ occ.T
+        d2[a:a + 1000] = np.rint(m.min(1)).astype(np.int64)
+    st = dt.nearest_index.new_tensor(s).long()
+    near = dt.nearest_index[st[:, 0], st[:, 1], st[:, 2]].cpu().numpy()
+    dist = dt.distance[st[:, 0], st[:, 1], st[:, 2]].cpu().numpy()
+    want = np.sqrt(d2.astype(np.float64)).astype(np.float32) \
+        * np.float32(dt.voxel_size)
+    return int(((((near - s) ** 2).sum(-1) != d2) | (dist != want)).sum())
+
+
+def _boxes_f64(np, grid, idx):
+    lo = grid.origin.astype(np.float64) + (idx.astype(np.float64)
+                                           - grid.resolution // 2) \
+        * grid.voxel_size
+    return lo, lo + grid.voxel_size
+
+
+def segment_hits(np, p0, p1, lo, hi, margin):
+    """[S] bool: does segment p0-p1 cross a box [lo - m, hi + m] by more
+    than TOUCH_TOL (float64 slabs)? The segments go 64 at a time, in
+    the order of their midpoints' 0.5 m cells, against the boxes that
+    meet their bounds."""
+    lo = lo - (margin - TOUCH_TOL)
+    hi = hi + (margin - TOUCH_TOL)
+    out = np.zeros(len(p0), bool)
+    order = np.lexsort(np.floor(p0 + p1).T[::-1])
+    for a in range(0, len(order), 64):
+        s = order[a:a + 64]
+        a0, b0 = p0[s], p1[s]
+        near = ((lo <= np.maximum(a0, b0).max(0))
+                & (hi >= np.minimum(a0, b0).min(0))).all(-1)
+        bl, bh = lo[near][None], hi[near][None]
+        o, d = a0[:, None], (b0 - a0)[:, None]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t0 = (bl - o) / d
+            t1 = (bh - o) / d
+        par = np.broadcast_to(d == 0, t0.shape)
+        inside = (o >= bl) & (o <= bh)
+        tmin = np.where(par, np.where(inside, -np.inf, np.inf),
+                        np.minimum(t0, t1)).max(-1)
+        tmax = np.where(par, np.where(inside, np.inf, -np.inf),
+                        np.maximum(t0, t1)).min(-1)
+        out[s] = ((tmax >= np.maximum(tmin, 0.0)) & (tmin <= 1.0)).any(-1)
+    return out
+
+
+def edge_cut_check(np, graph, lo, hi, margin, n, seed=11):
+    """(sampled edges, of them cut, ambiguous, wrong): n seeded edges of
+    `graph` held to segment_hits against the boxes [lo, hi] inflated by
+    `margin`. An edge that crosses a box grown by TOUCH_TOL but none
+    shrunk by it is a tie either cut state may answer (ambiguous); any
+    other edge is wrong when its infinite weight and the oracle
+    disagree."""
+    rng = np.random.default_rng(seed)
+    lines = graph.lines.cpu().numpy()
+    pick = rng.choice(len(lines), min(n, len(lines)), replace=False)
+    pts = graph.points.cpu().numpy().astype(np.float64)
+    p0, p1 = pts[lines[pick, 0]], pts[lines[pick, 1]]
+    cut = np.isinf(graph.edge_weights.cpu().numpy()[pick])
+    sure = segment_hits(np, p0, p1, lo, hi, margin)
+    maybe = segment_hits(np, p0, p1, lo, hi, margin + 2 * TOUCH_TOL)
+    amb = maybe & ~sure
+    return len(pick), int(cut.sum()), int(amb.sum()), \
+        int(((cut != sure) & ~amb).sum())
+
+
+def posed_primitives(ctt, chain, poses):
+    """The arm's collision primitives at the link poses `poses`."""
+    import copy
+
+    prims = []
+    for name, T in poses.items():
+        for s in chain.link_map[name].collisions:
+            p = copy.copy(s.primitive)
+            p.transform = (T @ s.primitive.transform).astype("float32")
+            prims.append(p)
+    return prims
+
+
+def _clearance(np, prim, pts):
+    """Signed float64 clearance of points to a primitive (negative
+    inside): L-infinity for a box, Euclidean for a sphere, the larger of
+    the radial and axial ones for a cylinder."""
+    T = prim.transform.astype(np.float64)
+    local = (pts - T[:3, 3]) @ T[:3, :3]
+    kind = type(prim).__name__
+    if kind == "Box":
+        return (np.abs(local) - prim.lengths.astype(np.float64) / 2).max(-1)
+    if kind == "Sphere":
+        return np.linalg.norm(pts - T[:3, 3], axis=-1) - prim.radius
+    return np.maximum(np.linalg.norm(local[:, :2], axis=-1) - prim.radius,
+                      np.abs(local[:, 2]) - prim.height / 2)
+
+
+def arm_oracle(np, prims, centres, inflate):
+    """(collided, ambiguous) by float64 containment of the voxel centres
+    in the primitives inflated by `inflate`, a centre within TOUCH_TOL of
+    an inflated surface ambiguous."""
+    c = min(float(_clearance(np, p, centres).min()) for p in prims) - inflate
+    return c <= -TOUCH_TOL, abs(c) < TOUCH_TOL
+
+
+def dense_pairs_host(np, lo1, hi1, lo2, hi2):
+    """Float32 AABB overlap pairs on the host, the second set first cut
+    to the first's bounds (exact: a box outside them meets none)."""
+    keep = np.nonzero(((lo2 <= hi1.max(0)) & (hi2 >= lo1.min(0))).all(-1))[0]
+    l2, h2 = lo2[keep], hi2[keep]
+    out = []
+    for a in range(0, len(lo1), 512):
+        hit = ((lo1[a:a + 512, None] <= h2[None])
+               & (l2[None] <= hi1[a:a + 512, None])).all(-1)
+        i, j = np.nonzero(hit)
+        out += list(zip((i + a).tolist(), keep[j].tolist()))
+    return set(out)
+
+
+def robotics_phase(np, torch, ctt, reset_counts, counts, path_counts, card):
+    """Phase 4r: occupancy mapping from depth frames and laser scans,
+    the distance field, a planner's roadmap and an arm's collisions,
+    all at cupoch's defaults on the card, then the card against the CPU
+    at a 64^3 grid."""
+    import io
+
+    dev = "cuda"
+    t_phase = time.perf_counter()
+    marks = []
+    G = ctt.geometry
+    intr, _ = kinfu_config(ctt)
+    frames = list(robotics_frames(np, ctt, intr, RGBD_FRAMES, dev))
+    buf = laser_buffer(np, ctt, LASER_SCANS, dev)
+    marks.append(("scene", time.perf_counter()))
+    reset_counts()
+
+    # depth mapping
+    grid = G.OccupancyGrid(device=dev)
+    state_gb = grid.prob_log.numel() * 4 / 1e9
+    ins_ms, steps = [], []
+    for pcd, centre in frames:
+        ins_ms.append(_sync_ms(torch, lambda: grid.insert(pcd, centre))[1])
+        steps.append(grid.last_dda_steps)
+    n_pts = int(frames[0][0].points.shape[0])
+    n_free = int(grid.extract_free_voxels()[0].shape[0])
+    n_occ = int(grid.extract_occupied_voxels()[0].shape[0])
+    print(f"path: depth mapping, {len(frames)} frames at {intr.width}x"
+          f"{intr.height} ({n_pts} points the first) into an OccupancyGrid "
+          f"at its defaults ({grid.voxel_size} m, {grid.resolution}^3, "
+          f"prob_log {state_gb:.3f} GB): insert ms cold {ins_ms[0]:.2f}, "
+          f"warm median {statistics.median(ins_ms[1:]):.2f}; DDA "
+          f"steps min / median / max {min(steps)} / "
+          f"{statistics.median(steps)} / {max(steps)}; {n_free} free and "
+          f"{n_occ} occupied voxels on {card}")
+    # one more insert of frame 1 into an empty grid of the same size,
+    # profiled (the mapped grid stays as the 20 frames left it)
+    spare = G.OccupancyGrid(device=dev)
+    pcd1, centre1 = frames[1]
+    profile(torch, f"OccupancyGrid.insert, {n_pts} rays, "
+            f"{grid.resolution}^3", lambda: spare.insert(pcd1, centre1),
+            statistics.median(ins_ms[1:]) / 1e3, warm_up=False)
+    del spare
+    marks.append(("depth inserts", time.perf_counter()))
+
+    # laser mapping
+    shadow, sh_ms = _sync_ms(torch, lambda: buf.scan_shadows_filter(
+        *LASER_SHADOW))
+    cloud = G.PointCloud.create_from_laserscanbuffer(shadow, 0.0,
+                                                     LASER_RANGE)
+    n_raw = int(np.isfinite(buf.get_ranges()).sum())
+    laser_ms = []
+    scans = shadow._copy()
+    while not scans.is_empty():
+        scan = scans.pop_one_scan()
+        pts = G.PointCloud.create_from_laserscanbuffer(scan, 0.0,
+                                                       LASER_RANGE)
+        vp = scan.get_origins()[0][:3, 3]
+        laser_ms.append(_sync_ms(torch, lambda: grid.insert(pts, vp))[1])
+    free_n = int(grid.extract_free_voxels()[0].shape[0])
+    occ_idx_t = grid.extract_occupied_voxels()[0]
+    occ_idx = occ_idx_t.cpu().numpy()
+    print(f"path: laser mapping, {buf.get_num_scans()} scans of "
+          f"{LASER_STEPS} steps over {LASER_FOV_DEG:.0f} deg, {n_raw} "
+          f"returns, {len(cloud.points)} after the shadow filter "
+          f"({sh_ms:.2f} ms): insert ms median "
+          f"{statistics.median(laser_ms):.2f}; the grid now {free_n} free "
+          f"and {len(occ_idx)} occupied voxels")
+    marks.append(("laser", time.perf_counter()))
+
+    # distance field
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    dt, edt_ms = _sync_ms(
+        torch, lambda: G.DistanceTransform.create_from_occupancy_grid(grid))
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    bad = edt_check(np, dt, occ_idx, EDT_SAMPLES)
+    print(f"path: distance field at {dt.resolution}^3: {edt_ms:.2f} ms; "
+          f"nearest_index {dt.nearest_index.numel() * 4 / 1e9:.3f} GB, "
+          f"peak {peak:.3f} GB above the {held / 1e9:.3f} GB held; "
+          f"{EDT_SAMPLES} seeded voxels against a host float64 brute "
+          f"force: {bad} differ")
+    if bad:
+        raise AssertionError("the distance field differs from the brute "
+                             "force")
+    marks.append(("EDT", time.perf_counter()))
+
+    # planning
+    res = [int(round((b - a) / LATTICE_SPACING)) + 1
+           for a, b in zip(*LATTICE_BOX)]
+    graph = G.Graph.create_from_axis_aligned_bounding_box(
+        LATTICE_BOX, res, device=dev)
+    planner = ctt.planning.Pos3DPlanner(graph)
+    planner.add_obstacle(grid)
+    _, upd_ms = _sync_ms(torch, planner.update_graph)
+    n_cut = int(torch.isinf(planner.graph.edge_weights).sum())
+    path, find_ms = _sync_ms(
+        torch, lambda: planner.find_path(PLAN_START, PLAN_GOAL))
+    import copy
+
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import dijkstra
+
+    ex = copy.deepcopy(planner.graph)
+    n0 = int(ex.points.shape[0])
+    ex.add_node_and_connect(np.asarray(PLAN_START, np.float32),
+                            planner.max_edge_distance, lazy_add=True)
+    ex.add_node_and_connect(np.asarray(PLAN_GOAL, np.float32),
+                            planner.max_edge_distance)
+    planner._remove_collision_edges(ex)
+    idx, length = ex.dijkstra_path(n0, n0 + 1)
+    lines = ex.lines.cpu().numpy()
+    w = ex.edge_weights.cpu().numpy().astype(np.float64)
+    fin = np.isfinite(w)
+    order = np.lexsort((w[fin], lines[fin][:, 1], lines[fin][:, 0]))
+    li, wf = lines[fin][order], w[fin][order]
+    first = np.ones(len(li), bool)
+    first[1:] = (li[1:] != li[:-1]).any(-1)
+    n = n0 + 2
+    csg = coo_matrix((wf[first], (li[first][:, 0], li[first][:, 1])),
+                     shape=(n, n)).tocsr()
+    ref = float(dijkstra(csg, indices=n0)[n0 + 1])
+    pts = np.asarray(path, np.float64)
+    lo, hi = _boxes_f64(np, grid, occ_idx)
+    n_s, n_s_cut, n_s_amb, n_s_bad = edge_cut_check(
+        np, planner.graph, lo, hi, planner.object_radius, EDGE_SAMPLES)
+    hits = segment_hits(np, pts[:-1], pts[1:], lo, hi,
+                        planner.object_radius) if len(pts) > 1 else []
+    along = np.concatenate([pts[:-1] + (pts[1:] - pts[:-1]) * f
+                            for f in np.linspace(0, 1, 11)]) \
+        if len(pts) > 1 else pts
+    edt_min = float(dt.get_distances(along.astype(np.float32)).min())
+    floor = planner.object_radius - grid.voxel_size * np.sqrt(3.0) / 2
+    print(f"path: planning on a {res[0]}x{res[1]}x{res[2]} lattice "
+          f"({int(graph.points.shape[0])} nodes, "
+          f"{int(graph.lines.shape[0])} directed edges), Pos3DPlanner at "
+          f"its defaults (radius {planner.object_radius}, max edge distance "
+          f"{planner.max_edge_distance}): collision-edge removal "
+          f"{upd_ms:.2f} ms ({n_cut} edges cut; of {n_s} seeded edges "
+          f"{n_s_cut} cut, {n_s_bad} differing from the float64 oracle, "
+          f"{n_s_amb} "
+          f"within {TOUCH_TOL} m of touching), find_path {find_ms:.2f} ms "
+          f"({planner.last_sssp_iterations} SSSP relaxations); path of "
+          f"{len(path)} points, length {length:.6f} against scipy's "
+          f"{ref:.6f}; edges meeting an inflated occupied box "
+          f"{int(np.sum(hits))}; least EDT along it {edt_min:.4f} m "
+          f"(floor {floor:.4f})")
+    if not path or [tuple(p) for p in path] != [
+            tuple(p) for p in ex.points[torch.as_tensor(idx)].cpu().numpy()]:
+        raise AssertionError("the planner found no path, or another one")
+    if n_s_bad or not 0 < n_s_cut < n_s:
+        raise AssertionError("collision-edge removal cut other edges than "
+                             "the float64 oracle")
+    if abs(length - ref) > PLAN_REL_TOL * ref or np.any(hits) \
+            or edt_min < floor - TOUCH_TOL:
+        raise AssertionError("the path is longer than scipy's or meets an "
+                             "obstacle")
+    marks.append(("planning", time.perf_counter()))
+
+    # the arm
+    chain = ctt.kinematics.KinematicChain(device=dev)
+    chain.build_from_urdf(io.StringIO(ARM_URDF))
+    base = arm_base(np)
+    rng = np.random.default_rng(17)
+    qs = rng.uniform(-np.pi, np.pi, (ARM_CONFIGS, 6))
+    # the shoulder keeps the upper arm at or above the horizontal
+    qs[:, 1] = rng.uniform(-np.pi, 0.0, ARM_CONFIGS)
+    centres = grid.voxel_centers(occ_idx_t).cpu().numpy().astype(np.float64)
+    inflate = grid.voxel_size * np.sqrt(3.0) / 2.0
+    got, posed = [], []
+    torch.cuda.synchronize()
+    arm_t0 = time.perf_counter()
+    for q in qs:
+        poses = chain.forward_kinematics(
+            {f"joint_{k}": float(v) for k, v in enumerate(q)}, base)
+        prims = posed_primitives(ctt, chain, {
+            k: poses[k] for k in ARM_MOVING_LINKS})
+        got.append(ctt.collision.compute_intersection(prims, grid)
+                   .is_collided())
+        posed.append(prims)
+    torch.cuda.synchronize()
+    arm_ms = (time.perf_counter() - arm_t0) * 1e3
+    want, ambiguous = [], 0
+    for prims in posed:
+        w_hit, amb = arm_oracle(np, prims, centres, inflate)
+        want.append(w_hit)
+        ambiguous += amb
+    got, want = np.asarray(got), np.asarray(want)
+    print(f"path: arm, {len(qs)} seeded configurations: forward kinematics "
+          f"and compute_intersection(the {len(ARM_MOVING_LINKS)} moving "
+          f"links' primitives, occupancy grid) "
+          f"{arm_ms / len(qs):.3f} ms each; "
+          f"{int(got.sum())} collided ({int(want.sum())} by the float64 "
+          f"oracle, {ambiguous} within {TOUCH_TOL} m of touching)")
+    if np.any(got != want):
+        raise AssertionError("the arm's collided set differs from the "
+                             "oracle's")
+    # the link swept from the first free configuration to the one that
+    # sinks it deepest into the occupied voxels
+    link = chain.link_map[ARM_SWEEP_LINK].collisions[0].primitive
+
+    def link_pose(i):
+        return chain.forward_kinematics(
+            {f"joint_{k}": float(v) for k, v in enumerate(qs[i])}, base)[
+                ARM_SWEEP_LINK]
+
+    deep = int(np.argmin([_clearance(np, posed_primitives(
+        ctt, chain, {ARM_SWEEP_LINK: link_pose(i)})[0], centres).min()
+        for i in range(len(qs))]))
+    ends = (int(np.argmin(got)), deep)
+    pose = [link_pose(i) for i in ends]
+    prim = posed_primitives(ctt, chain, {ARM_SWEEP_LINK: pose[0]})[0]
+    sweep, sweep_ms = _sync_ms(
+        torch, lambda: prim.create_voxel_grid_with_sweeping(
+            ARM_SWEEP_VOXEL, (pose[1] @ link.transform).astype(np.float32)))
+    occ_vg = G.VoxelGrid.create_from_occupancy_grid(grid)
+    res_b, b_ms = _sync_ms(
+        torch, lambda: ctt.collision.compute_intersection(sweep, occ_vg))
+    lo1 = (sweep.origin + sweep.voxels_keys.cpu().numpy().astype(np.float32)
+           * np.float32(sweep.voxel_size)).astype(np.float32)
+    lo2 = (occ_vg.origin + occ_vg.voxels_keys.cpu().numpy().astype(
+        np.float32) * np.float32(occ_vg.voxel_size)).astype(np.float32)
+    oracle = dense_pairs_host(np, lo1, lo1 + np.float32(sweep.voxel_size),
+                              lo2, lo2 + np.float32(occ_vg.voxel_size))
+    pairs = set(map(tuple, res_b.collision_index_pairs.cpu().numpy()
+                    .tolist()))
+    per_box = np.bincount([i for i, _ in oracle] or [0])
+    if per_box.max() > 32:
+        raise AssertionError("a swept voxel meets over 32 occupied ones: "
+                             "the bucket phase's per-box cap would bind")
+    print(f"path: swept {ARM_SWEEP_LINK} at {ARM_SWEEP_VOXEL} m from "
+          f"configuration {ends[0]} to {ends[1]}: {len(sweep)} "
+          f"voxels in {sweep_ms:.2f} ms against "
+          f"VoxelGrid.create_from_occupancy_grid ({len(occ_vg)} voxels, "
+          f"N*M {len(sweep) * len(occ_vg)}): the {res_b.route} route, "
+          f"{res_b.n_dropped} dropped, {len(pairs)} pairs in {b_ms:.2f} ms "
+          f"against the host dense oracle's {len(oracle)}")
+    if res_b.route != "bucket" or res_b.n_dropped or pairs != oracle:
+        raise AssertionError("the bucket route's pairs differ from the "
+                             "dense oracle's")
+    marks.append(("arm", time.perf_counter()))
+    path_counts["robotics"] = c = counts()
+    print(f"path launches (phase 4r): {c}")
+    if any(c.values()):
+        raise AssertionError("phase 4r launched a kernel: none of its "
+                             "modules calls one")
+    del grid, dt, planner, ex, frames, occ_vg
+    robotics_small(np, torch, ctt, dev)
+    marks.append(("small check", time.perf_counter()))
+    phase_s = time.perf_counter() - t_phase
+    parts, last_t = [], t_phase
+    for name, t in marks:
+        parts.append(f"{name} {t - last_t:.1f}")
+        last_t = t
+    print(f"phase 4r: {phase_s:.1f} s ({', '.join(parts)})")
+    if phase_s > ROBOTICS_PHASE_S:
+        raise AssertionError(f"phase 4r took {phase_s:.1f} s")
+
+
+def robotics_small(np, torch, ctt, dev, R=64):
+    """Phase 4r's modules at a R^3 grid of 0.1 m on the card and on the
+    CPU from the same host inputs: DDA masks, prob_log, EDT distances and
+    indices, collision pairs as sets, SSSP dist and prev, FK poses, laser
+    points and carve_depth_map keep masks must be identical."""
+    import io
+
+    from cupoch_tpu_torch.geometry import occupancygrid, graph as tgraph
+
+    G = ctt.geometry
+    intr, _ = kinfu_config(ctt)
+    small = intr.scale(0.1)
+    frames = [(p.points.cpu().numpy(), c) for p, c in robotics_frames(
+        np, ctt, small, 2, "cpu")]
+    out = {}
+    for name in (dev, "cpu"):
+        r = {}
+        grid = G.OccupancyGrid(0.1, R, device=name)
+        pts0 = torch.as_tensor(frames[0][0], device=name)
+        r["dda"] = occupancygrid.dda_free_mask(
+            pts0, torch.as_tensor(frames[0][1], device=name), 0.1,
+            torch.zeros(3, device=name), R, 3 * R)[0]
+        for p, cpos in frames:
+            grid.insert(p, cpos)
+        buf = laser_buffer(np, ctt, 5, name)
+        shadow = buf.scan_shadows_filter(*LASER_SHADOW)
+        r["laser"] = G.PointCloud.create_from_laserscanbuffer(
+            shadow, 0.0, LASER_RANGE).points
+        for k in range(5):
+            sc = G.LaserScanBuffer.from_numpy(
+                shadow.ranges[k:k + 1].cpu().numpy(),
+                shadow.origins[k:k + 1].cpu().numpy(), 0, 1,
+                shadow.min_angle_, shadow.max_angle_, device=name)
+            grid.insert(G.PointCloud.create_from_laserscanbuffer(
+                sc, 0.0, LASER_RANGE), sc.get_origins()[0][:3, 3])
+        r["prob_log"] = grid.prob_log
+        dt = G.DistanceTransform.create_from_occupancy_grid(grid)
+        r["edt"], r["nearest"] = dt.distance, dt.nearest_index
+        lat = G.Graph.create_from_axis_aligned_bounding_box(
+            LATTICE_BOX, (15, 4, 13), device=name)
+        res = ctt.collision.compute_intersection(grid, lat, 0.1)
+        r["pairs"] = set(map(tuple, res.collision_index_pairs.cpu().numpy()
+                             .tolist()))
+        planner = ctt.planning.Pos3DPlanner(lat)
+        planner.add_obstacle(grid)
+        planner.update_graph()
+        g = planner.graph
+        d, prev, _ = tgraph.sssp(g.lines[:, 0], g.lines[:, 1],
+                                 g.edge_weights, 0, int(g.points.shape[0]),
+                                 int(g.points.shape[0]))
+        r["dist"], r["prev"] = d, prev
+        chain = ctt.kinematics.KinematicChain(device=name)
+        chain.build_from_urdf(io.StringIO(ARM_URDF))
+        poses = chain.forward_kinematics({"joint_1": 0.0, "joint_2": 1.3},
+                                         arm_base(np))
+        prims = posed_primitives(ctt, chain, poses)
+        r["arm_pairs"] = set(map(tuple, ctt.collision.compute_intersection(
+            prims, grid).collision_index_pairs.cpu().numpy().tolist()))
+        r["fk"] = np.stack([poses[k] for k in sorted(poses)])
+        params = ctt.camera.PinholeCameraParameters()
+        params.intrinsic = small
+        params.extrinsic = np.linalg.inv(room_view(np)).astype(np.float32)
+        _, depth = room_frame(np, ctt, 0, small, name)
+        depth = G.Image(depth.data.to(torch.float32) / torch.tensor(
+            RGBD_DEPTH_SCALE, device=name))
+        vg = G.VoxelGrid.create_dense((-1.6, -0.6, 0.0), 0.1, 3.2, 1.5, 3.0,
+                                      device=name)
+        r["carve"] = vg.carve_keep_mask(depth, params, False)
+        out[name] = r
+    g, c = out[dev], out["cpu"]
+    same = {}
+    for k in g:
+        a, b = g[k], c[k]
+        if isinstance(a, torch.Tensor):
+            a, b = a.cpu(), b.cpu()
+            same[k] = a.shape == b.shape and bool(
+                ((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+        elif isinstance(a, set):
+            same[k] = a == b
+        else:
+            same[k] = np.array_equal(a, b)
+    sizes = (f"{int(c['dda'].sum())} DDA voxels, {len(c['pairs'])} edge "
+             f"pairs, {len(c['arm_pairs'])} arm pairs, "
+             f"{int(c['carve'].sum())} of {c['carve'].numel()} kept")
+    print(f"small input (robotics at {R}^3, frames at {small.width}x"
+          f"{small.height}, 5 scans): cuda vs cpu identical: "
+          + ", ".join(f"{k} {v}" for k, v in same.items()) + f" ({sizes})")
+    if not all(same.values()):
+        raise AssertionError("the card and the CPU differ on the robotics "
+                             "modules")
 
 
 def _time_ms(torch, fn, reps):
@@ -2712,6 +3370,8 @@ def main():
                         card)
     # 4k. RGB-D odometry and KinectFusion
     rgbd_phase(np, torch, ctt, reset_counts, counts, path_counts, card)
+    # 4r. occupancy mapping, distance field, planning and collisions
+    robotics_phase(np, torch, ctt, reset_counts, counts, path_counts, card)
 
     # 5. per-kernel numbers, then the result
     print(json.dumps({"path_launches": path_counts,

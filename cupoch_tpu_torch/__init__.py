@@ -13,14 +13,17 @@ torch.backends.cudnn.allow_tf32 = False
 
 from . import (  # noqa: E402
     camera,
+    collision,
     geometry,
     integration,
+    kinematics,
     kinfu,
     knn,
     odometry,
+    planning,
     registration,
     utility,
 )
 
-__all__ = ["camera", "geometry", "integration", "kinfu", "knn", "odometry",
-           "registration", "utility"]
+__all__ = ["camera", "collision", "geometry", "integration", "kinematics",
+           "kinfu", "knn", "odometry", "planning", "registration", "utility"]

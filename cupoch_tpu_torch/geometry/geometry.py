@@ -46,6 +46,22 @@ def as_f32(x, device: torch.device, shape_suffix=(3,)) -> torch.Tensor:
     return a
 
 
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root, on the card and on the
+    CPU alike: taken in float64 and rounded once (PyTorch's vectorised
+    float32 sqrt on the CPU is off by an ulp on some inputs)."""
+    return torch.sqrt(x.double()).to(torch.float32)
+
+
+def norm_f32(*cols: torch.Tensor) -> torch.Tensor:
+    """sqrt(c0^2 + c1^2 + ...) of float32 columns, summed left to right
+    and rounded as `sqrt_f32`."""
+    acc = cols[0] * cols[0]
+    for c in cols[1:]:
+        acc = acc + c * c
+    return sqrt_f32(acc)
+
+
 class Geometry:
     def __init__(self, geometry_type: GeometryType, dimension: int):
         self._geometry_type = GeometryType(geometry_type)

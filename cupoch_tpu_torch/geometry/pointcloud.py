@@ -377,6 +377,20 @@ class PointCloud(Geometry3D):
         return factory.create_from_disparity(
             disp, color, left_intrinsic, right_intrinsic, baseline, device)
 
+    @staticmethod
+    def create_from_laserscanbuffer(scan, min_range: float,
+                                    max_range: float) -> "PointCloud":
+        from . import pointcloud_factory as factory
+
+        return factory.create_from_laserscanbuffer(scan, min_range,
+                                                   max_range)
+
+    @staticmethod
+    def create_from_occupancygrid(occgrid) -> "PointCloud":
+        from . import pointcloud_factory as factory
+
+        return factory.create_from_occupancygrid(occgrid)
+
     # -- numpy bridge -------------------------------------------------------
     def to_numpy(self) -> np.ndarray:
         return self.points.cpu().numpy()

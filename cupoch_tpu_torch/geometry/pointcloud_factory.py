@@ -183,3 +183,38 @@ def create_from_disparity(disp, color, left_intrinsic, right_intrinsic,
     pcd = PointCloud(pts[keep], device=dev)
     pcd.colors = cols[keep]
     return pcd
+
+
+def create_from_laserscanbuffer(scan, min_range: float, max_range: float):
+    """The buffer's readings within [min_range, max_range] as world
+    points, grey colours from the intensities when it has them (cupoch
+    PointCloud::CreateFromLaserScanBuffer, pointcloud_factory.cu:375-416);
+    on the buffer's device."""
+    from .laserscanbuffer import scan_to_points
+    from .pointcloud import PointCloud
+
+    if scan.is_empty():
+        console.log_error("[PointCloud::CreateFromLaserScanBuffer] Empty "
+                          "scan, return empty pointcloud.")
+    if min_range >= max_range:
+        console.log_error("[PointCloud::CreateFromLaserScanBuffer] "
+                          "min_range must be smaller than max_range.")
+    pts, ok = scan_to_points(scan.ranges, scan.origins, scan.min_angle_,
+                             scan.get_angle_increment(), min_range,
+                             max_range)
+    keep = ok & scan._slot_mask().repeat_interleave(scan.num_steps_)
+    pcd = PointCloud(pts[keep], device=scan.device)
+    if scan.has_intensities():
+        pcd.colors = scan.intensities.reshape(-1)[keep][:, None].expand(
+            -1, 3).contiguous()
+    return pcd
+
+
+def create_from_occupancygrid(occgrid):
+    """The occupied voxels' centres (cupoch
+    PointCloud::CreateFromOccupancyGrid, pointcloud_factory.cu:418-430);
+    on the grid's device."""
+    from .pointcloud import PointCloud
+
+    idx, _, _ = occgrid.extract_occupied_voxels()
+    return PointCloud(occgrid.voxel_centers(idx), device=occgrid.device)

@@ -212,3 +212,17 @@ class TriangleMesh(MeshBase):
               & (t[:, 2] != t[:, 0]))
         self.triangles = t[ok]
         return self
+
+
+# -- primitive factories (cupoch trianglemesh_factory.cu:391-900) -----
+def _bind_factories():
+    from . import trianglemesh_factory as F
+
+    for name in ("tetrahedron", "octahedron", "icosahedron", "box",
+                 "sphere", "half_sphere", "cylinder", "tube", "capsule",
+                 "cone", "torus", "arrow", "coordinate_frame", "moebius"):
+        setattr(TriangleMesh, "create_" + name,
+                staticmethod(getattr(F, "create_" + name)))
+
+
+_bind_factories()

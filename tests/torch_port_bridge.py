@@ -1,7 +1,9 @@
 """Turn the JAX package's objects into the PyTorch port's through
 numpy, so both packages compute on identical inputs: point clouds
 (with normals, colours and covariances), images and RGB-D pairs,
-camera intrinsics, features and the FGR option.
+camera intrinsics, features and the FGR option, triangle meshes, voxel
+and occupancy grids, distance transforms, line sets, graphs and laser
+scan buffers (the last five through the port's `from_numpy`).
 A helper of the port's parity tests (tests/test_torch_*.py)."""
 import numpy as np
 
@@ -75,3 +77,63 @@ def intrinsic(jintr):
 
     return PinholeCameraIntrinsic.from_dict(jintr.to_dict())
 
+
+
+def mesh(jmesh, device="cpu"):
+    from cupoch_tpu_torch.geometry import TriangleMesh
+
+    return TriangleMesh(np.array(jmesh.vertices), np.array(jmesh.triangles),
+                        device=device)
+
+
+def voxel_grid(jvg, device="cpu"):
+    from cupoch_tpu_torch.geometry import VoxelGrid
+
+    return VoxelGrid.from_numpy(np.asarray(jvg.voxels_keys),
+                                np.asarray(jvg.voxels_colors),
+                                jvg.voxel_size, jvg.origin, device=device)
+
+
+def occupancy_grid(jog, device="cpu"):
+    from cupoch_tpu_torch.geometry import OccupancyGrid
+
+    return OccupancyGrid.from_numpy(
+        np.asarray(jog.prob_log), jog.voxel_size, jog.origin, jog.min_bound,
+        jog.max_bound, jog.clamping_thres_min, jog.clamping_thres_max,
+        jog.prob_hit_log, jog.prob_miss_log, jog.occ_prob_thres_log,
+        device=device)
+
+
+def distance_transform(jdt, device="cpu"):
+    from cupoch_tpu_torch.geometry import DistanceTransform
+
+    return DistanceTransform.from_numpy(np.asarray(jdt.distance),
+                                        np.asarray(jdt.nearest_index),
+                                        jdt.voxel_size, jdt.origin,
+                                        device=device)
+
+
+def line_set(jls, device="cpu"):
+    from cupoch_tpu_torch.geometry import LineSet
+
+    return LineSet.from_numpy(np.asarray(jls.points), np.asarray(jls.lines),
+                              np.asarray(jls.colors), dim=jls.dim,
+                              device=device)
+
+
+def graph(jg, device="cpu"):
+    from cupoch_tpu_torch.geometry import Graph
+
+    return Graph.from_numpy(np.asarray(jg.points), np.asarray(jg.lines),
+                            np.asarray(jg.edge_weights), jg.is_directed,
+                            dim=jg.dim, device=device)
+
+
+def laser_scan(jbuf, device="cpu"):
+    from cupoch_tpu_torch.geometry import LaserScanBuffer
+
+    return LaserScanBuffer.from_numpy(
+        np.asarray(jbuf.ranges), np.asarray(jbuf.origins), jbuf.top_,
+        jbuf.bottom_, jbuf.min_angle_, jbuf.max_angle_,
+        None if jbuf.intensities is None else np.asarray(jbuf.intensities),
+        device=device)

@@ -107,6 +107,23 @@ Phases, each printed on its own line:
        occupied voxels on the bucket route, held to a host dense oracle;
        no kernel launches; then every module at 64^3 on the card against
        the CPU, identical;
+     - 4s. reconstruct and save (`reconstruct_phase`): phase 4k's 20
+       frames fused into a ScalableTSDFVolume at Open3D's RGB-D
+       integration settings (voxel 4/512 m, sdf_trunc 0.04, RGB8), its
+       cloud and mesh held to the room; the mesh's cleanups, Taubin
+       smoothing, normals, 1M uniform samples (held to the room) and the
+       self-intersection test on the bucket route (held to a host dense
+       oracle on 2000 seeded triangles); SGM at libSGM's
+       defaults on a rendered rectified pair at a 0.05 m baseline, held
+       to the true disparity and its cloud to the room; the mesh, the
+       cloud and the samples written and read back as PLY, OBJ with a
+       PNG texture, STL, PCD (binary and LZF-compressed, the C decoder
+       held to the plain one) and a VoxelGrid PLY, binary files bit for
+       bit; the ATE benchmark on the 20 frames written as PNG in the
+       RGB-D test data's layout, its poses held to odometry on the same
+       frames in memory; no kernel launches; then the card against the
+       CPU on small inputs, and files written from card tensors
+       byte-equal to those from CPU tensors;
   5. one JSON line of per-kernel numbers, then the result line.
 
 Any failure raises and exits non-zero. Without a card it exits
@@ -967,6 +984,31 @@ def room_frame(np, ctt, k, intrinsic, device, view=None):
     return Image(rgb, device=device), Image(mm, device=device)
 
 
+def write_rgbd_sequence(np, ctt, root, intrinsic, frames):
+    """Frames 0 .. frames-1 of the trajectory written under `root` in
+    the layout of cupoch's RGB-D test data: `camera_primesense.json`,
+    `rgbd/color/%06d.png` (uint8 RGB), `rgbd/depth/%06d.png` (uint16
+    mm) and `rgbd/trajectory.log` of the true camera-to-world poses.
+    Returns ([(RGB, depth mm)] as written, the true poses)."""
+    io = ctt.io
+    for sub in ("color", "depth"):
+        os.makedirs(os.path.join(root, "rgbd", sub), exist_ok=True)
+    io.write_pinhole_camera_intrinsic(
+        os.path.join(root, "camera_primesense.json"), intrinsic)
+    out, poses = [], []
+    for k in range(frames):
+        rgb, depth = room_depth(np, rgbd_pose(np, k), intrinsic)
+        mm = np.round(depth * RGBD_DEPTH_SCALE).astype(np.uint16)
+        for sub, arr in (("color", rgb), ("depth", mm)):
+            io.write_image(os.path.join(root, "rgbd", sub, f"{k:06d}.png"),
+                           arr)
+        out.append((rgb, mm))
+        poses.append(rgbd_pose(np, k).astype(np.float32))
+    io.write_trajectory_log(os.path.join(root, "rgbd", "trajectory.log"),
+                            poses)
+    return out, poses
+
+
 def odometry_pair_error(np, T_est, T_true):
     """(translation error in m, ||R_err - I||_F) of T_est against
     T_true."""
@@ -1491,11 +1533,14 @@ def robotics_frames(np, ctt, intr, frames, dev):
             depth_scale=RGBD_DEPTH_SCALE), P[:3, 3].astype(np.float32)
 
 
-def _sync_ms(torch, fn):
-    torch.cuda.synchronize()
+def _sync_ms(torch, fn, dev="cuda"):
+    """(fn(), its milliseconds), a card `dev` synchronised around it."""
+    sync = torch.cuda.synchronize if torch.device(dev).type == "cuda" \
+        else (lambda: None)
+    sync()
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    sync()
     return out, (time.perf_counter() - t0) * 1e3
 
 
@@ -1989,6 +2034,578 @@ def robotics_small(np, torch, ctt, dev, R=64):
     if not all(same.values()):
         raise AssertionError("the card and the CPU differ on the robotics "
                              "modules")
+
+
+# the reconstruct-and-save phase (4s): the room of phase 4k fused into a
+# scalable TSDF volume at the settings of Open3D's RGB-D integration
+# tutorial (which cupoch's API mirrors: voxel 4/512 m, sdf_trunc 0.04,
+# RGB8, depth truncated at 4 m), the mesh cleaned, smoothed, sampled and
+# tested for self-intersections, a rectified stereo pair of the room at
+# a RealSense D435's 0.05 m baseline through SGM at libSGM's defaults,
+# every file format written and read back, and the ATE benchmark run on
+# the frames written to disk
+RECON_PHASE_S = 60.0
+RECON_VOXEL = 4.0 / 512
+RECON_TRUNC = 0.04
+RECON_DEPTH_TRUNC = 4.0
+RECON_TAUBIN = 10
+RECON_SAMPLES = 1_000_000
+STEREO_BASELINE = 0.05
+STEREO_SHARE_MIN = 0.90
+VOXEL_IO = 0.01
+ATE_POSE_TOL = 1e-6
+SGM_DISP_SIZE = 128
+INTERSECT_SAMPLE = 2000
+
+
+def recon_rgbd(np, ctt, k, intr, dev):
+    """Frame k for the volume: the sensor's uint8 colour as it is and
+    its depth in metres, truncated at RECON_DEPTH_TRUNC."""
+    c, d = room_frame(np, ctt, k, intr, dev)
+    depth = ctt.geometry.RGBDImage.create_from_color_and_depth(
+        c, d, RGBD_DEPTH_SCALE, RECON_DEPTH_TRUNC, False).depth
+    return ctt.geometry.RGBDImage(c, depth)
+
+
+def room_share(np, pts, tol):
+    """Share of points [N, 3] (first camera frame) within `tol` (a
+    number or [N]) of the room's surfaces."""
+    return float((room_distance(np, pts) <= tol).mean())
+
+
+def stereo_pair(np, intr):
+    """Rectified grey pair (uint8, ITU-R 601 weights of room_texture's
+    RGB) of the first camera and one STEREO_BASELINE to its right, with
+    the left view's RGB and z-depth."""
+    right = np.eye(4)
+    right[0, 3] = STEREO_BASELINE
+    rgb_l, z_l = room_depth(np, np.eye(4), intr)
+    rgb_r, _ = room_depth(np, right, intr)
+
+    def grey(rgb):
+        return np.round(rgb.astype(np.float64) @ [0.299, 0.587, 0.114]) \
+            .astype(np.uint8)
+
+    return grey(rgb_l), grey(rgb_r), rgb_l, z_l
+
+
+def stereo_checks(np, disp, z_true, fx):
+    """(share of pixels with a disparity, share of those within 1 px of
+    fx b / z)."""
+    d = disp.astype(np.float64)
+    truth = np.where(z_true > 0, fx * STEREO_BASELINE
+                     / np.maximum(z_true, 1e-9), 0.0)
+    valid = (d > 0) & (z_true > 0)
+    return float(valid.mean()), float((np.abs(d - truth)[valid] <= 1.0)
+                                      .mean())
+
+
+def sgm_stages(torch, ctt, left, right, opt):
+    """ms of SGM's stages on the card: census (both images), cost
+    volume, path aggregation, winner-takes-all; and the disparity."""
+    import importlib
+
+    sgm = importlib.import_module("cupoch_tpu_torch.imageproc.sgm")
+    lt = torch.as_tensor(left, dtype=torch.float32, device="cuda")
+    rt = torch.as_tensor(right, dtype=torch.float32, device="cuda")
+    (cl, cr), ms_census = _sync_ms(torch, lambda: (
+        sgm._census97(lt), sgm._census97(rt)))
+    cost, ms_cost = _sync_ms(torch, lambda: sgm._cost_volume(
+        cl, cr, opt.disp_size, opt.min_disp))
+    S, ms_agg = _sync_ms(torch, lambda: sgm._aggregate(
+        cost, opt.p1, opt.p2, 8))
+    disp, ms_wta = _sync_ms(torch, lambda: sgm._select_disparity(
+        S, opt.uniqueness, opt.min_disp, opt.lr_max_diff))
+    return {"census": ms_census, "cost": ms_cost, "aggregation": ms_agg,
+            "wta": ms_wta}, disp
+
+
+def _quantized(np, colors):
+    """Colours as the files store them (uint8) and read them back."""
+    c = np.clip(np.asarray(colors) * 255.0, 0, 255).astype(np.uint8)
+    return (c.astype(np.float32) / 255.0).astype(np.float32)
+
+
+def _same(np, a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and bool((a == b).all())
+
+
+def _cloud_equal(np, got, want, colors=True):
+    """The read cloud against the written one: points and normals bit
+    for bit, colours as uint8 stores them."""
+    ok = _same(np, got.points.cpu().numpy(), want.points.cpu().numpy())
+    if want.has_normals():
+        ok &= _same(np, got.normals.cpu().numpy(),
+                    want.normals.cpu().numpy())
+    if colors and want.has_colors():
+        ok &= _same(np, got.colors.cpu().numpy(),
+                    _quantized(np, want.colors.cpu().numpy()))
+    return ok
+
+
+def _io_round(torch, path, write, read):
+    """(what `read` gives, write ms, read ms, file MB)."""
+    _, w_ms = _sync_ms(torch, write)
+    got, r_ms = _sync_ms(torch, read)
+    return got, w_ms, r_ms, os.path.getsize(path) / 1e6
+
+
+def textured_copy(np, ctt, mesh, side=256):
+    """The mesh with UVs from its vertices' x and z over its box and a
+    side x side texture of room_texture over that box's floor plan."""
+    v = mesh.vertices.cpu().numpy()
+    lo, hi = v.min(0), v.max(0)
+    uv_v = np.stack([(v[:, 0] - lo[0]) / (hi[0] - lo[0]),
+                     (v[:, 2] - lo[2]) / (hi[2] - lo[2])], -1)
+    out = ctt.geometry.TriangleMesh(mesh.vertices, mesh.triangles,
+                                    device=mesh.device)
+    out.triangle_uvs = uv_v[mesh.triangles.cpu().numpy().reshape(-1)] \
+        .astype(np.float32)
+    g = (np.arange(side) + 0.5) / side
+    gx, gz = np.meshgrid(lo[0] + g * (hi[0] - lo[0]),
+                         lo[2] + (1.0 - g) * (hi[2] - lo[2]))
+    plan = np.stack([gx, np.zeros_like(gx), gz], -1)
+    out.texture = ctt.geometry.Image(room_texture(np, plan),
+                                     device=mesh.device)
+    return out
+
+
+def io_checks(np, torch, ctt, root, mesh, cloud, samples):
+    """Every format written and read back on the card: (lines, all
+    equal).
+    Binary files are held bit for bit (colours as uint8 stores them),
+    ASCII ones at their printed precision; the cloud's PCD payload is
+    decoded by the C codec and the plain decoder."""
+    import struct
+
+    io = ctt.io
+    lines, ok = [], True
+
+    def record(name, path, got_ok, w_ms, r_ms, mb):
+        nonlocal ok
+        ok &= bool(got_ok)
+        lines.append(f"{name} {mb:.1f} MB, write {mb / w_ms * 1e3:.0f} "
+                     f"MB/s, read {mb / r_ms * 1e3:.0f} MB/s, equal "
+                     f"{bool(got_ok)}")
+
+    v = mesh.vertices.cpu().numpy()
+    t = mesh.triangles.cpu().numpy()
+    for ext in ("ply", "stl"):
+        path = os.path.join(root, f"mesh.{ext}")
+        got, w, r, mb = _io_round(
+            torch, path, lambda: io.write_triangle_mesh(path, mesh),
+            lambda: io.read_triangle_mesh(path, device="cuda"))
+        gv, gt = got.vertices.cpu().numpy(), got.triangles.cpu().numpy()
+        if ext == "ply":
+            same = _same(np, gv, v) and _same(np, gt, t) and _same(
+                np, got.vertex_normals.cpu().numpy(),
+                mesh.vertex_normals.cpu().numpy()) and _same(
+                np, got.vertex_colors.cpu().numpy(),
+                _quantized(np, mesh.vertex_colors.cpu().numpy()))
+        else:    # STL keeps the corners; equal ones become one vertex
+            same = _same(np, gv[gt], v[t])
+        record(f"mesh {ext.upper()}", path, same, w, r, mb)
+    tex = textured_copy(np, ctt, mesh)
+    path = os.path.join(root, "mesh.obj")
+    got, w, r, mb = _io_round(
+        torch, path, lambda: io.write_triangle_mesh(path, tex),
+        lambda: io.read_triangle_mesh(path, device="cuda"))
+    uv = tex.triangle_uvs.cpu().numpy()
+    same = (_same(np, got.triangles.cpu().numpy(), t)
+            and np.allclose(got.vertices.cpu().numpy(), v, rtol=1e-7,
+                            atol=1e-7)
+            and np.allclose(got.triangle_uvs.cpu().numpy(), uv, rtol=1e-7,
+                            atol=1e-7)
+            and _same(np, got.texture.to_numpy(), tex.texture.to_numpy()))
+    record("mesh OBJ (8 digits) + texture PNG", path, same, w, r, mb)
+
+    for name, pcd in (("cloud", cloud), ("samples", samples)):
+        for ext, kw in (("pcd", {"compressed": True}), ("pcd", {}),
+                        ("ply", {})):
+            tag = "binary_compressed" if kw else "binary"
+            path = os.path.join(root, f"{name}_{tag}.{ext}")
+            got, w, r, mb = _io_round(
+                torch, path,
+                lambda: io.write_point_cloud(path, pcd, **kw),
+                lambda: io.read_point_cloud(path, device="cuda"))
+            record(f"{name} {ext.upper()} {tag}", path,
+                   _cloud_equal(np, got, pcd), w, r, mb)
+    # the cloud's compressed payload, decoded both ways
+    path = os.path.join(root, "cloud_binary_compressed.pcd")
+    with open(path, "rb") as f:
+        blob = f.read()
+    head = blob.index(b"DATA binary_compressed\n") + 23
+    comp, raw = struct.unpack("<II", blob[head:head + 8])
+    payload = blob[head + 8:head + 8 + comp]
+    lzf = ctt.utility.lzf
+    c_out, c_ms = _sync_ms(torch, lambda: lzf.decompress(payload, raw),
+                           "cpu")
+    p_out, p_ms = _sync_ms(
+        torch, lambda: lzf.decompress_plain(payload, raw), "cpu")
+    lzf_ok = comp < raw and c_out == p_out and len(c_out) == raw
+    ok &= lzf_ok
+    lines.append(f"LZF on the cloud's PCD ({raw / 1e6:.1f} MB to "
+                 f"{comp / 1e6:.1f} MB): C decoder {c_ms:.1f} ms, plain "
+                 f"decoder {p_ms:.1f} ms, equal {lzf_ok}")
+
+    vg = ctt.geometry.VoxelGrid.create_from_point_cloud(cloud, VOXEL_IO)
+    path = os.path.join(root, "voxels.ply")
+    got, w, r, mb = _io_round(
+        torch, path, lambda: io.write_voxel_grid(path, vg),
+        lambda: io.read_voxel_grid(path, device="cuda"))
+    same = (_same(np, got.voxels_keys.cpu().numpy(),
+                  vg.voxels_keys.cpu().numpy())
+            and _same(np, got.voxels_colors.cpu().numpy(),
+                      _quantized(np, vg.voxels_colors.cpu().numpy()))
+            and got.voxel_size == vg.voxel_size
+            and _same(np, got.origin, vg.origin))
+    record(f"VoxelGrid PLY ({len(vg)} voxels of {VOXEL_IO} m)", path, same,
+           w, r, mb)
+    return lines, ok
+
+
+def intersection_check(np, torch, ctt, mesh, pairs):
+    """`get_self_intersecting_triangles`'s pairs held to a host oracle:
+    the boxes of INTERSECT_SAMPLE seeded triangles against every box by
+    the dense test on the CPU, then the triangle test there on each
+    candidate (i < j) sharing no vertex. Returns (pairs of the sampled
+    triangles the oracle has and `pairs` lacks, the reverse)."""
+    import importlib
+
+    col = importlib.import_module("cupoch_tpu_torch.collision.collision")
+    tri_tri = ctt.geometry.intersection_test.tri_tri
+    t = mesh.triangles.cpu().long()
+    tv = mesh.vertices.cpu()[t]                          # [F, 3, 3]
+    F = t.shape[0]
+    rows = torch.from_numpy(np.sort(np.random.default_rng(13).choice(
+        F, min(INTERSECT_SAMPLE, F), replace=False)))
+    lo, hi = tv.amin(1), tv.amax(1)
+    cand = col.aabb_overlap_pairs(lo[rows], hi[rows], lo, hi, 0.0).long()
+    i, j = rows[cand[:, 0]], cand[:, 1]
+    i, j = torch.minimum(i, j), torch.maximum(i, j)
+    keep = (i != j) & ~(t[i][:, :, None] == t[j][:, None, :]).any(2).any(1)
+    i, j = i[keep], j[keep]
+    a, b = tv[i], tv[j]
+    hit = tri_tri(a[:, 0], a[:, 1], a[:, 2], b[:, 0], b[:, 1], b[:, 2])
+    want = set(zip(i[hit].tolist(), j[hit].tolist()))
+    sampled = set(rows.tolist())
+    got = {(p, q) for p, q in pairs.cpu().tolist()
+           if p in sampled or q in sampled}
+    return len(want - got), len(got - want)
+
+
+def pair_kinds(torch, mesh, pairs):
+    """(pairs whose triangles are coplanar by tri_tri's rule, |d| <=
+    1e-10, pairs holding a triangle of zero area), in float64."""
+    t = mesh.triangles.cpu().long()
+    tv = mesh.vertices.cpu().double()[t]
+    pl = pairs.cpu().long()
+    p1, p2 = tv[pl[:, 0]], tv[pl[:, 1]]
+
+    def normal(p):
+        return torch.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0], dim=-1)
+
+    dist = ((p1 - p2[:, None, 0]) * normal(p2)[:, None]).sum(-1)
+    flat = (normal(p1).abs().amax(1) == 0) | (normal(p2).abs().amax(1) == 0)
+    return int((dist.abs() <= 1e-10).all(1).sum()), int(flat.sum())
+
+
+def mesh_ops(np, torch, ctt, mesh, dev, samples):
+    """The mesh operations of phase 4s on `mesh` (in place where the
+    method works in place), each timed: ({name: ms}, the smoothed mesh
+    with normals, the samples, the self-intersecting pairs)."""
+    ms = {}
+    for name in ("remove_duplicated_vertices", "remove_duplicated_triangles",
+                 "remove_unreferenced_vertices"):
+        _, ms[name] = _sync_ms(torch, getattr(mesh, name), dev)
+    smooth, ms["filter_smooth_taubin"] = _sync_ms(
+        torch, lambda: mesh.filter_smooth_taubin(RECON_TAUBIN), dev)
+    _, ms["compute_vertex_normals"] = _sync_ms(
+        torch, smooth.compute_vertex_normals, dev)
+    pts, ms["sample_points_uniformly"] = _sync_ms(
+        torch, lambda: smooth.sample_points_uniformly(samples), dev)
+    pairs, ms["get_self_intersecting_triangles"] = _sync_ms(
+        torch, smooth.get_self_intersecting_triangles, dev)
+    return ms, smooth, pts, pairs
+
+
+def reconstruct_phase(np, torch, ctt, reset_counts, counts, path_counts,
+                      card):
+    """Phase 4s: the scalable volume over the room's frames, its cloud
+    and mesh, the mesh operations, SGM on a rendered stereo pair, every
+    file format written and read back, the ATE benchmark from files on
+    disk; then the card against the CPU on small inputs. No kernel
+    launches."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    marks = []
+    G = ctt.geometry
+    dev = "cuda"
+    intr = ctt.camera.PinholeCameraIntrinsic(
+        ctt.camera.PinholeCameraIntrinsicParameters.PrimeSenseDefault)
+    n_frames, disp_size = RGBD_FRAMES, SGM_DISP_SIZE
+    fx, _ = intr.get_focal_length()
+    frames = [recon_rgbd(np, ctt, k, intr, dev) for k in range(n_frames)]
+    left, right, rgb_l, z_l = stereo_pair(np, intr)
+    marks.append(("scene", time.perf_counter()))
+    reset_counts()
+
+    # the scalable volume
+    vol = ctt.integration.ScalableTSDFVolume(
+        RECON_VOXEL, RECON_TRUNC, ctt.integration.TSDFVolumeColorType.RGB8,
+        device=dev)
+    frame_ms = []
+    for k, frame in enumerate(frames):
+        ext = np.linalg.inv(rgbd_pose(np, k)).astype(np.float32)
+        frame_ms.append(_sync_ms(torch, lambda: vol.integrate(
+            frame, intr, ext))[1])
+    state_gb = vol.capacity * 16 ** 3 * (4 + 4 + 12) / 1e9
+    cloud, cloud_ms = _sync_ms(torch, vol.extract_point_cloud, dev)
+    mesh, mesh_ms = _sync_ms(torch, vol.extract_triangle_mesh, dev)
+    cpts, mv = cloud.points.cpu().numpy(), mesh.vertices.cpu().numpy()
+    share_c = room_share(np, cpts, MESH_TOL)
+    share_m = room_share(np, mv, MESH_TOL)
+    print(f"path: ScalableTSDFVolume (voxel {RECON_VOXEL} m, sdf_trunc "
+          f"{RECON_TRUNC}, RGB8, depth stride {vol.depth_sampling_stride}), "
+          f"{n_frames} frames at {intr.width}x{intr.height}: "
+          f"{len(vol)} blocks, capacity {vol.capacity} ({state_gb:.3f} GB "
+          f"of tsdf, weight and colour); cloud {len(cloud)} points, mesh "
+          f"{len(mv)} vertices and {mesh.triangles.shape[0]} triangles; "
+          f"within {MESH_TOL} m of the room: cloud {share_c:.4f}, mesh "
+          f"vertices {share_m:.4f} (limit {MESH_SHARE_MIN})")
+    print(f"timing: scalable volume ms a frame: cold {frame_ms[0]:.2f}, "
+          f"warm median {statistics.median(frame_ms[2:]):.2f} (min "
+          f"{min(frame_ms[2:]):.2f}, max {max(frame_ms[2:]):.2f}); "
+          f"extract_point_cloud {cloud_ms:.2f}; extract_triangle_mesh "
+          f"{mesh_ms:.2f} on {card}")
+    if min(share_c, share_m) < MESH_SHARE_MIN:
+        raise AssertionError("the scalable volume's cloud or mesh is off "
+                             "the room")
+    profile(torch, f"extract_triangle_mesh, {mesh.triangles.shape[0]} "
+            "triangles", vol.extract_triangle_mesh, mesh_ms / 1e3,
+            warm_up=False)
+    marks.append(("volume", time.perf_counter()))
+
+    # the mesh operations
+    n_before = (len(mv), int(mesh.triangles.shape[0]))
+    ms, smooth, samples, pairs = mesh_ops(np, torch, ctt, mesh, dev,
+                                          RECON_SAMPLES)
+    share_s = room_share(np, samples.points.cpu().numpy(), MESH_TOL)
+    print(f"path: mesh operations on the volume's mesh ({n_before[0]} "
+          f"vertices, {n_before[1]} triangles -> {len(mesh.vertices)}, "
+          f"{mesh.triangles.shape[0]} after the cleanups): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items())
+          + f"; self-intersection route {smooth.last_intersection_route}, "
+          f"{len(pairs)} pairs; {len(samples)} samples within {MESH_TOL} m "
+          f"of the room: {share_s:.4f} (limit {MESH_SHARE_MIN}) on {card}")
+    if share_s < MESH_SHARE_MIN:
+        raise AssertionError("the mesh's samples are off the room")
+    if smooth.triangles.shape[0] ** 2 > 16_000_000 \
+            and smooth.last_intersection_route != "bucket":
+        raise AssertionError("the self-intersection test did not take the "
+                             "bucket route")
+    missing, extra = intersection_check(np, torch, ctt, smooth, pairs)
+    raw = mesh.get_self_intersecting_triangles()
+    kinds = {"smoothed": (pairs, pair_kinds(torch, smooth, pairs)),
+             "before smoothing": (raw, pair_kinds(torch, mesh, raw))}
+    print(f"path: self-intersections on the {smooth.last_intersection_route}"
+          f" route ({smooth.last_intersection_dropped} boxes dropped and "
+          f"retested densely): " + "; ".join(
+              f"{k} {len(p)} pairs, {c} coplanar (tri_tri's box branch), "
+              f"{z} with a zero-area triangle"
+              for k, (p, (c, z)) in kinds.items())
+          + f"; host dense oracle on {INTERSECT_SAMPLE} seeded triangles "
+          f"of the smoothed mesh: {missing} pairs missing, {extra} extra")
+    if missing or extra:
+        raise AssertionError("the self-intersecting pairs differ from the "
+                             "host oracle's on the sampled triangles")
+    marks.append(("mesh ops", time.perf_counter()))
+
+    # stereo
+    opt = ctt.imageproc.SGMOption(intr.width, intr.height,
+                                  disp_size=disp_size)
+    sgm = ctt.imageproc.SemiGlobalMatching(opt)
+    li, ri = G.Image(left, device=dev), G.Image(right, device=dev)
+    disp, cold_ms = _sync_ms(torch, lambda: sgm.process_frame(li, ri), dev)
+    _, warm_ms = _sync_ms(torch, lambda: sgm.process_frame(li, ri), dev)
+    profile(torch, f"SGM process_frame {intr.width}x{intr.height}, "
+            f"disp_size {disp_size}", lambda: sgm.process_frame(li, ri),
+            warm_ms / 1e3, warm_up=False)
+    stages, disp2 = sgm_stages(torch, ctt, left, right, opt)
+    d = disp.to_numpy()[..., 0]
+    if not _same(np, disp2.cpu().numpy(), d):
+        raise AssertionError("SGM's stages disagree with process_frame")
+    valid, within = stereo_checks(np, d, z_l, fx)
+    color_l = G.Image(rgb_l, device=dev)
+    scloud, cl_ms = _sync_ms(torch, lambda: G.PointCloud
+                             .create_from_disparity(disp, color_l, intr,
+                                                    intr, STEREO_BASELINE),
+                             dev)
+    sp = scloud.points.cpu().numpy()
+    share_z = room_share(np, sp, sp[:, 2] ** 2 / (fx * STEREO_BASELINE))
+    truth_max = float(fx * STEREO_BASELINE / z_l[z_l > 0].min())
+    print(f"path: SGM {intr.width}x{intr.height}, disp_size {disp_size}, "
+          f"8 paths, P1 {opt.p1}, P2 {opt.p2}, uniqueness "
+          f"{opt.uniqueness}, baseline {STEREO_BASELINE} m (largest true "
+          f"disparity {truth_max:.1f} px): {valid:.4f} of the pixels "
+          f"valid, {within:.4f} of those within 1 px (limit "
+          f"{STEREO_SHARE_MIN}); stereo cloud {len(sp)} points, "
+          f"{share_z:.4f} within one pixel's depth error z^2/(fx b) of "
+          f"the room (limit {STEREO_SHARE_MIN})")
+    print(f"timing: SGM process_frame cold {cold_ms:.2f} ms, warm "
+          f"{warm_ms:.2f} ms; stages " + ", ".join(
+              f"{k} {v:.2f}" for k, v in stages.items())
+          + f" ms; create_from_disparity {cl_ms:.2f} ms on {card}")
+    if within < STEREO_SHARE_MIN or share_z < STEREO_SHARE_MIN:
+        raise AssertionError("SGM's disparities or cloud miss their limit")
+    marks.append(("stereo", time.perf_counter()))
+
+    # files
+    with tempfile.TemporaryDirectory() as root:
+        lines, io_ok = io_checks(np, torch, ctt, root, smooth, cloud,
+                                 samples)
+        print("path: IO, each format written and read back on the card: "
+              + "; ".join(lines))
+        if not io_ok:
+            raise AssertionError("a file did not read back as written")
+        marks.append(("io", time.perf_counter()))
+
+        # ATE from files on disk
+        seq = os.path.join(root, "sequence")
+        write_rgbd_sequence(np, ctt, seq, intr, n_frames)
+        from cupoch_tpu_torch.bench import ate as bench
+
+        (ate, n, poses), ate_ms = _sync_ms(
+            torch, lambda: bench.run_sequence(seq, device=dev), dev)
+    create = G.RGBDImage.create_from_color_and_depth
+    mem = [create(*room_frame(np, ctt, k, intr, dev))
+           for k in range(n_frames)]
+    want, mem_ms = _sync_ms(torch, lambda: bench.odometry_trajectory(
+        mem, intr), dev)
+    gap = float(np.abs(np.stack(poses) - np.stack(want)).max())
+    print(f"path: ATE benchmark from disk ({n} frames at {intr.width}x"
+          f"{intr.height}, PNG): ATE {ate:.6e} m; poses against the same "
+          f"frames in memory: max gap {gap:.3e} (limit {ATE_POSE_TOL}); "
+          f"run_sequence {ate_ms:.1f} ms, in-memory odometry {mem_ms:.1f} "
+          f"ms")
+    if n != n_frames or gap > ATE_POSE_TOL:
+        raise AssertionError("the ATE benchmark's poses from disk differ "
+                             "from those in memory")
+    marks.append(("ATE", time.perf_counter()))
+    path_counts["reconstruct"] = c = counts()
+    print(f"path launches (phase 4s): {c}")
+    if any(c.values()):
+        raise AssertionError("phase 4s launched a kernel: none of its "
+                             "modules calls one")
+    del vol, frames, mesh, smooth, samples, cloud, mem
+    recon_small(np, torch, ctt, dev)
+    marks.append(("small check", time.perf_counter()))
+    phase_s = time.perf_counter() - t_phase
+    parts, last_t = [], t_phase
+    for name, t in marks:
+        parts.append(f"{name} {t - last_t:.1f}")
+        last_t = t
+    print(f"phase 4s: {phase_s:.1f} s ({', '.join(parts)})")
+    if phase_s > RECON_PHASE_S:
+        raise AssertionError(f"phase 4s took {phase_s:.1f} s")
+
+
+def recon_small(np, torch, ctt, dev):
+    """Phase 4s's modules on small inputs on the card and on the CPU from
+    the same host inputs: the scalable volume on two 64x48 frames at
+    0.05 m (slots equal, tsdf and weight within 1e-5, meshes equal once
+    sorted), SGM at 160x120 with disp_size 64 (bit-equal), the card's
+    argmin on ties (the first index), the mesh operations on that mesh
+    (within 1e-5, the samples' draws alike), and files written from card
+    tensors byte-equal to those from CPU tensors."""
+    import tempfile
+
+    G = ctt.geometry
+    intr = ctt.camera.PinholeCameraIntrinsic(
+        ctt.camera.PinholeCameraIntrinsicParameters.PrimeSenseDefault)
+    small = intr.scale(0.1)
+    sgm_intr = intr.scale(0.25)
+    left, right, _, _ = stereo_pair(np, sgm_intr)
+    out = {}
+    for name in (dev, "cpu"):
+        vol = ctt.integration.ScalableTSDFVolume(0.05, 0.15, device=name)
+        for k in (0, 2):
+            vol.integrate(recon_rgbd(np, ctt, k, small, name), small,
+                          np.linalg.inv(rgbd_pose(np, k)).astype(np.float32))
+        mesh = vol.extract_triangle_mesh()
+        _, smooth, samples, pairs = mesh_ops(np, torch, ctt, mesh, name,
+                                             1000)
+        opt = ctt.imageproc.SGMOption(sgm_intr.width, sgm_intr.height,
+                                      disp_size=64)
+        disp = ctt.imageproc.SemiGlobalMatching(opt).process_frame(
+            G.Image(left, device=name), G.Image(right, device=name))
+        out[name] = dict(
+            slots=dict(vol._slots), tsdf=vol.tsdf.cpu().numpy(),
+            weight=vol.weight.cpu().numpy(),
+            mesh=np.sort(mesh.vertices.cpu().numpy(), 0),
+            smooth=smooth.vertices.cpu().numpy(),
+            normals=smooth.vertex_normals.cpu().numpy(),
+            samples=samples.points.cpu().numpy(),
+            pairs=pairs.cpu().numpy(), disp=disp.to_numpy(),
+            objects=(smooth, vol.extract_point_cloud()))
+    g, c = out[dev], out["cpu"]
+    gaps = {k: float(np.abs(g[k] - c[k]).max()) if g[k].size else 0.0
+            for k in ("tsdf", "weight", "smooth", "normals", "samples")}
+    # winner-takes-all's ties: the first least index, as numpy's argmin
+    ties = np.random.default_rng(12).integers(0, 3, (4096, 128)) \
+        .astype(np.int32)
+    same = {"slots": g["slots"] == c["slots"],
+            "mesh": _same(np, g["mesh"], c["mesh"]),
+            "pairs": _same(np, g["pairs"], c["pairs"]),
+            "sgm": _same(np, g["disp"], c["disp"]),
+            "argmin ties": _same(np, torch.argmin(torch.as_tensor(
+                ties, device=dev), -1).cpu().numpy(), ties.argmin(-1))}
+    files = {}
+    with tempfile.TemporaryDirectory() as root:
+        (mesh_g, cloud_g) = g["objects"]
+        for name, write, obj in (
+                ("mesh.ply", ctt.io.write_triangle_mesh, mesh_g),
+                ("mesh.stl", ctt.io.write_triangle_mesh, mesh_g),
+                ("cloud.pcd", lambda p, o: ctt.io.write_point_cloud(
+                    p, o, compressed=True), cloud_g)):
+            blobs = []
+            for where in (dev, "cpu"):
+                o = _on(ctt, obj, where)
+                p = os.path.join(root, f"{where}_{name}")
+                write(p, o)
+                with open(p, "rb") as f:
+                    blobs.append(f.read())
+            files[name] = blobs[0] == blobs[1]
+    print(f"small input (scalable volume on two frames at {small.width}x"
+          f"{small.height}, 0.05 m; SGM at {sgm_intr.width}x"
+          f"{sgm_intr.height}, disp_size 64; mesh operations; files): cuda "
+          f"vs cpu: " + ", ".join(f"{k} {v}" for k, v in same.items())
+          + ", gaps " + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+          + ", files byte-equal " + ", ".join(f"{k} {v}" for k, v in
+                                              files.items()))
+    if not (all(same.values()) and all(files.values())
+            and max(gaps.values()) <= 1e-5):
+        raise AssertionError("the card and the CPU differ on phase 4s's "
+                             "modules")
+
+
+def _on(ctt, obj, device):
+    """A copy of a mesh or cloud on `device`."""
+    G = ctt.geometry
+    if isinstance(obj, G.TriangleMesh):
+        out = G.TriangleMesh(obj.vertices.to(device),
+                             obj.triangles.to(device), device=device)
+        for name in ("vertex_normals", "vertex_colors"):
+            v = getattr(obj, name)
+            setattr(out, name, None if v is None else v.to(device))
+        return out
+    out = G.PointCloud(obj.points.to(device), device=device)
+    for name in ("normals", "colors"):
+        v = getattr(obj, name)
+        setattr(out, name, None if v is None else v.to(device))
+    return out
 
 
 def _time_ms(torch, fn, reps):
@@ -3372,6 +3989,9 @@ def main():
     rgbd_phase(np, torch, ctt, reset_counts, counts, path_counts, card)
     # 4r. occupancy mapping, distance field, planning and collisions
     robotics_phase(np, torch, ctt, reset_counts, counts, path_counts, card)
+    # 4s. scalable volume, mesh operations, stereo, files and the ATE
+    reconstruct_phase(np, torch, ctt, reset_counts, counts, path_counts,
+                      card)
 
     # 5. per-kernel numbers, then the result
     print(json.dumps({"path_launches": path_counts,

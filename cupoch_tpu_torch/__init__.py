@@ -12,10 +12,13 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from . import (  # noqa: E402
+    bench,
     camera,
     collision,
     geometry,
+    imageproc,
     integration,
+    io,
     kinematics,
     kinfu,
     knn,
@@ -24,6 +27,9 @@ from . import (  # noqa: E402
     registration,
     utility,
 )
+# the geometry's to_*_dlpack / from_*_dlpack methods
+from .utility import dl_converter  # noqa: E402,F401
 
-__all__ = ["camera", "collision", "geometry", "integration", "kinematics",
-           "kinfu", "knn", "odometry", "planning", "registration", "utility"]
+__all__ = ["bench", "camera", "collision", "geometry", "imageproc",
+           "integration", "io", "kinematics", "kinfu", "knn", "odometry",
+           "planning", "registration", "utility"]

@@ -89,7 +89,9 @@ class PinholeCameraIntrinsic:
         out = PinholeCameraIntrinsic()
         out.width = int(d["width"])
         out.height = int(d["height"])
-        out.intrinsic_matrix = (
+        # column-major in the file; a contiguous copy, since a transposed
+        # view makes the card's small products take another rounding
+        out.intrinsic_matrix = np.ascontiguousarray(
             np.asarray(d["intrinsic_matrix"], np.float32).reshape(3, 3).T)
         return out
 
@@ -116,7 +118,8 @@ class PinholeCameraParameters:
     def from_dict(d: dict) -> "PinholeCameraParameters":
         out = PinholeCameraParameters()
         out.intrinsic = PinholeCameraIntrinsic.from_dict(d["intrinsic"])
-        out.extrinsic = np.asarray(d["extrinsic"], np.float32).reshape(4, 4).T
+        out.extrinsic = np.ascontiguousarray(
+            np.asarray(d["extrinsic"], np.float32).reshape(4, 4).T)
         return out
 
 

@@ -6,7 +6,9 @@ set's rows so no [N, M] matrix is ever whole; each tile's `nonzero`,
 concatenated, gives the row-major order of the whole matrix's. Above
 _DENSE_LIMIT pairs, two voxel sets go through a bucket broad phase
 instead: the second set's boxes binned by centre into a uniform grid
-whose cell exceeds the boxes' reach, each first-set box tested against
+whose cell exceeds the boxes' reach (and grows until the grid holds at
+most _BUCKET_GRID_CELLS cells, where the JAX package takes the dense
+phase instead), each first-set box tested against
 its cell's 27-neighbourhood (the LBVH's role in the reference,
 collision.cu:21-22), with up to _MAX_PAIRS_PER_QUERY hits a box and the
 overflowing boxes counted as dropped. The narrow phases (segment/box
@@ -15,7 +17,7 @@ slabs, primitive inside tests) run on the same device.
 from __future__ import annotations
 
 import enum
-from typing import List, Optional, Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -33,8 +35,10 @@ _DENSE_LIMIT = 16_000_000     # N * M above this: the bucket broad phase
 _MAX_PAIRS_PER_QUERY = 32
 # elements of one [rows, M] tile of a dense pair test
 _TILE_ELEMS = 1 << 24
-# cells of the bucket grid tested at once
-_BUCKET_CELLS = 4096
+# cells of the bucket grid at most
+_BUCKET_GRID_CELLS = 4_000_000
+# elements of one [cells, query slots, lanes] block of the bucket test
+_BUCKET_ELEMS = 1 << 25
 
 RUN_OFFSETS_ = tuple(sorted(
     ((dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
@@ -151,24 +155,29 @@ def _slot_cap(counts: torch.Tensor) -> int:
 
 def bucket_overlap_pairs(lo1, hi1, lo2, hi2, margin: float,
                          max_pairs: int = _MAX_PAIRS_PER_QUERY
-                         ) -> Optional[Tuple[torch.Tensor, int]]:
-    """Scalable AABB-set overlap: (pairs [K, 2] int32, boxes dropped), or
-    None when the bucket grid would exceed 4M cells. Up to `max_pairs`
-    hits a first-set box, the first in lane order."""
+                         ) -> Tuple[torch.Tensor, int]:
+    """Scalable AABB-set overlap: (pairs [K, 2] int32, boxes dropped).
+    The cell is the largest box extent plus the margin, grown by a
+    quarter at a time while the grid would exceed _BUCKET_GRID_CELLS
+    cells. A cell holds the 99.9th percentile of the cells' box counts;
+    the boxes past that are dropped and counted. Up to `max_pairs` hits a
+    first-set box, the first in lane order."""
     dev = lo1.device
     c1 = (lo1 + hi1) * 0.5
     c2 = (lo2 + hi2) * 0.5
     e1 = float((hi1 - lo1).amax()) if lo1.shape[0] else 0.0
     e2 = float((hi2 - lo2).amax()) if lo2.shape[0] else 0.0
     h = (e1 + e2) * 0.5 + float(margin) + 1e-6
-    gmin = np.minimum(c1.amin(0).cpu().numpy(), c2.amin(0).cpu().numpy()) \
-        - 2 * h
-    gmax = np.maximum(c1.amax(0).cpu().numpy(), c2.amax(0).cpu().numpy()) \
-        + 2 * h
-    dims = np.maximum(np.ceil((gmax - gmin) / h).astype(int) + 1, 1)
-    C = int(np.prod(dims))
-    if C > 4_000_000:
-        return None
+    cmin = np.minimum(c1.amin(0).cpu().numpy(), c2.amin(0).cpu().numpy())
+    cmax = np.maximum(c1.amax(0).cpu().numpy(), c2.amax(0).cpu().numpy())
+    while True:
+        gmin = cmin - 2 * h
+        dims = np.maximum(np.ceil((cmax + 2 * h - gmin) / h).astype(int)
+                          + 1, 1)
+        C = int(np.prod(dims))
+        if C <= _BUCKET_GRID_CELLS:
+            break
+        h *= 1.25
     Gx, Gy, Gz = (int(d) for d in dims)
     gmin_t = torch.as_tensor(gmin, device=dev)
     h_t = _f32(h, dev)
@@ -193,13 +202,17 @@ def bucket_overlap_pairs(lo1, hi1, lo2, hi2, margin: float,
     k = min(max_pairs, KC)
     m = _f32(margin, dev)
     lane_score = (KC - torch.arange(KC, device=dev)).to(torch.float32)
+    offs = torch.tensor(RUN_OFFSETS_, device=dev)
+    # only the cells that hold a first-set box make pairs, in cell order
+    cells = torch.nonzero((index1 >= 0).any(1))[:, 0]
+    block = max(1, _BUCKET_ELEMS // (qcap * KC))
     pairs = []
-    for s in range(0, C, _BUCKET_CELLS):
-        cell = torch.arange(s, min(s + _BUCKET_CELLS, C), device=dev)
+    for s in range(0, cells.shape[0], block):
+        cell = cells[s:s + block]
         cx, cy, cz = cell // (Gy * Gz), (cell // Gz) % Gy, cell % Gz
-        nb = torch.stack([(((cx + dx) % Gx) * Gy + (cy + dy) % Gy) * Gz
-                          + (cz + dz) % Gz for dx, dy, dz in RUN_OFFSETS_],
-                         -1)                                 # [T, 27]
+        nb = ((((cx[:, None] + offs[:, 0]) % Gx) * Gy
+               + (cy[:, None] + offs[:, 1]) % Gy) * Gz
+              + (cz[:, None] + offs[:, 2]) % Gz)             # [T, 27]
 
         def lanes(a):
             return a[nb].reshape(cell.shape[0], KC)
@@ -252,18 +265,17 @@ def _result(first, second, pairs, swap: bool) -> CollisionResult:
 
 def _box_sets(lo1, hi1, lo2, hi2, margin: float):
     """(pairs, route, dropped): the bucket phase above _DENSE_LIMIT
-    pairs where its grid fits, else the dense one."""
+    pairs, else the dense one."""
     n, m = int(lo1.shape[0]), int(lo2.shape[0])
     if n * m > _DENSE_LIMIT:
-        got = bucket_overlap_pairs(lo1, hi1, lo2, hi2, margin)
-        if got is not None:
-            if got[1]:
-                console.log_warning(
-                    "[ComputeIntersection] bucket broad phase dropped "
-                    f"{got[1]} overflowing boxes")
-            console.log_debug("[ComputeIntersection] %d x %d boxes: bucket "
-                              "broad phase, %d dropped", n, m, got[1])
-            return got[0], "bucket", got[1]
+        pairs, dropped = bucket_overlap_pairs(lo1, hi1, lo2, hi2, margin)
+        if dropped:
+            console.log_warning(
+                "[ComputeIntersection] bucket broad phase dropped "
+                f"{dropped} overflowing boxes")
+        console.log_debug("[ComputeIntersection] %d x %d boxes: bucket "
+                          "broad phase, %d dropped", n, m, dropped)
+        return pairs, "bucket", dropped
     console.log_debug("[ComputeIntersection] %d x %d boxes: dense broad "
                       "phase", n, m)
     return aabb_overlap_pairs(lo1, hi1, lo2, hi2, margin), "dense", 0

@@ -1,6 +1,8 @@
 """Volumetric TSDF integration (cupoch integration/): the dense uniform
-volume."""
+volume and the block-hashed scalable volume."""
+from .scalable_tsdfvolume import ScalableTSDFVolume
 from .tsdfvolume import TSDFVolume, TSDFVolumeColorType
 from .uniform_tsdfvolume import UniformTSDFVolume
 
-__all__ = ["TSDFVolume", "TSDFVolumeColorType", "UniformTSDFVolume"]
+__all__ = ["ScalableTSDFVolume", "TSDFVolume", "TSDFVolumeColorType",
+           "UniformTSDFVolume"]

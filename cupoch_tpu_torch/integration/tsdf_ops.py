@@ -4,6 +4,8 @@ integration/integrate_functor.h, uniform_tsdfvolume.cu).
 - `integrate`: the projective update of every voxel, in slabs along x
   so the temporaries of a 512^3 grid stay small; each voxel's update is
   independent of the others, so the result is that of one pass.
+  `integrate_blocks` makes the same update over the 16^3 blocks of a
+  block table, in chunks.
 - `surface_crossings`: the zero crossings between neighbouring voxels.
 - `raycast`: a march of nearest-voxel samples for every pixel, then a
   trilinear refinement of the crossing, normals and colours.
@@ -35,14 +37,63 @@ def _f32(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
+def _fma(a, b, c) -> torch.Tensor:
+    """a * b + c of float32 tensors rounded once, as a fused
+    multiply-add: the product is exact in float64 and the sum rounds
+    there first (a second rounding that changes the float32 result only
+    at a tie of 2^-29 odds)."""
+    return (a.double() * b.double() + c.double()).to(torch.float32)
+
+
+def _muladd(a, b, c) -> torch.Tensor:
+    return a * b + c
+
+
+def _update(pc, ts, w, cv, depth, color_img, multiplier, K, sdf_trunc,
+            muladd):
+    """The projective update of voxels whose camera-frame centres are pc
+    [..., 3] and whose tsdf, weight and colour are ts, w [...] and cv
+    [..., 3] (None without colour): each centre takes the depth of the
+    pixel it rounds to; a voxel in the image with a positive depth and
+    sdf > -sdf_trunc averages in min(1, sdf / sdf_trunc), and its
+    colour. `muladd(a, b, c)` forms the running averages' a * b + c:
+    `integrate` rounds the product and the sum apart (`_muladd`), which
+    keeps a 512^3 grid's temporaries in float32 (fused, chip_smoke.py
+    phase 4k's update took 47 ms a frame for 35 on an H100);
+    `integrate_blocks` rounds once
+    (`_fma`), as the JAX package's compiled scalable update does and as
+    its 1e-6 parity needs. Returns (ts, w, cv) updated."""
+    H, W = depth.shape
+    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    z = pc[..., 2]
+    safe_z = torch.where(z > 1e-8, z, 1.0)
+    # +0.5 then truncation: the nearest pixel (integrate_functor.h)
+    u_f = pc[..., 0] * fx / safe_z + cx + 0.5
+    v_f = pc[..., 1] * fy / safe_z + cy + 0.5
+    in_img = ((u_f >= 1e-4) & (u_f < W - 1e-4) & (v_f >= 1e-4)
+              & (v_f < H - 1e-4) & (z > 0))
+    u = u_f.to(torch.int64).clamp(0, W - 1)
+    v = v_f.to(torch.int64).clamp(0, H - 1)
+    pix = v * W + u
+    d = depth.reshape(-1)[pix]
+    sdf = (d - z) * multiplier.reshape(-1)[pix]
+    update = in_img & (d > 0.0) & (sdf > -sdf_trunc)
+    tsdf_new = torch.clamp(sdf / sdf_trunc, max=1.0)
+    w1 = w + 1.0
+    if cv is not None:
+        color_f = color_img.reshape(-1, color_img.shape[-1])
+        c_new = muladd(cv, w[..., None], color_f[pix]) / w1[..., None]
+        cv = torch.where(update[..., None], c_new, cv)
+    return (torch.where(update, muladd(ts, w, tsdf_new) / w1, ts),
+            torch.where(update, w1, w), cv)
+
+
 def integrate(tsdf, weight, color_vol, depth, color_img, multiplier, K,
               extrinsic, voxel_length, sdf_trunc, origin,
               color_channels: int):
-    """One projective TSDF update, in place (cupoch integrate_functor.h):
-    each voxel centre goes into the camera of the world-to-camera
-    `extrinsic` and takes the depth of the pixel it rounds to; a voxel
-    in the image with a positive depth and sdf > -sdf_trunc averages in
-    min(1, sdf / sdf_trunc), and its colour when `color_channels` > 0.
+    """One projective TSDF update (`_update`, cupoch
+    integrate_functor.h), in place, of every voxel of a dense grid, its
+    centres put into the camera of the world-to-camera `extrinsic`.
 
     tsdf, weight [R, R, R]; color_vol [R, R, R, 3]; depth [H, W] metres
     (0 invalid); color_img [H, W, 3]; multiplier [H, W] (z-depth to ray
@@ -51,16 +102,11 @@ def integrate(tsdf, weight, color_vol, depth, color_img, multiplier, K,
     color_vol)."""
     dev = tsdf.device
     R = tsdf.shape[0]
-    H, W = depth.shape
-    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
     vl = _f32(voxel_length, dev)
     trunc = _f32(sdf_trunc, dev)
     Rot, t = extrinsic[:3, :3], extrinsic[:3, 3]
     idx = torch.arange(R, dtype=torch.float32, device=dev)
     centre = idx[:, None] * vl + 0.5 * vl + origin        # [R, 3]
-    depth_f = depth.reshape(-1)
-    mult_f = multiplier.reshape(-1)
-    color_f = color_img.reshape(-1, color_img.shape[-1])
     yz = (centre[None, :, None, 1:2], centre[None, None, :, 2:3])
     slab = max(1, SLAB_VOXELS // (R * R))
     for x0 in range(0, R, slab):
@@ -68,28 +114,50 @@ def integrate(tsdf, weight, color_vol, depth, color_img, multiplier, K,
         px = centre[x0:x1, None, None, 0:1]
         # camera-frame centres [S, R, R, 3]: R p + t, summed over p's axes
         pc = (px * Rot[:, 0] + yz[0] * Rot[:, 1]) + yz[1] * Rot[:, 2] + t
-        z = pc[..., 2]
-        safe_z = torch.where(z > 1e-8, z, 1.0)
-        # +0.5 then truncation: the nearest pixel (integrate_functor.h)
-        u_f = pc[..., 0] * fx / safe_z + cx + 0.5
-        v_f = pc[..., 1] * fy / safe_z + cy + 0.5
-        in_img = ((u_f >= 1e-4) & (u_f < W - 1e-4) & (v_f >= 1e-4)
-                  & (v_f < H - 1e-4) & (z > 0))
-        u = u_f.to(torch.int64).clamp(0, W - 1)
-        v = v_f.to(torch.int64).clamp(0, H - 1)
-        pix = v * W + u
-        d = depth_f[pix]
-        sdf = (d - z) * mult_f[pix]
-        update = in_img & (d > 0.0) & (sdf > -trunc)
-        tsdf_new = torch.clamp(sdf / trunc, max=1.0)
-        ts, w = tsdf[x0:x1], weight[x0:x1]
-        w1 = w + 1.0
-        if color_channels > 0:
-            cv = color_vol[x0:x1]
-            c_new = (cv * w[..., None] + color_f[pix]) / w1[..., None]
-            cv.copy_(torch.where(update[..., None], c_new, cv))
-        ts.copy_(torch.where(update, (ts * w + tsdf_new) / w1, ts))
-        w.copy_(torch.where(update, w1, w))
+        cv = color_vol[x0:x1] if color_channels > 0 else None
+        ts, w, cv_new = _update(pc, tsdf[x0:x1], weight[x0:x1], cv, depth,
+                                color_img, multiplier, K, trunc, _muladd)
+        if cv is not None:
+            cv.copy_(cv_new)
+        tsdf[x0:x1] = ts
+        weight[x0:x1] = w
+    return tsdf, weight, color_vol
+
+
+def integrate_blocks(tsdf, weight, color_vol, slots, block_origins, depth,
+                     color_img, multiplier, K, extrinsic, voxel_length,
+                     sdf_trunc, color_channels: int):
+    """`_update` of the [16, 16, 16] blocks `slots` [B] of block tables
+    tsdf and weight [cap, 16, 16, 16] and color_vol [cap, 16, 16, 16, 3],
+    whose min corners are block_origins [B, 3], in place (cupoch
+    scalable_tsdfvolume.cu, integrate_functor.h): each chunk of blocks is
+    gathered, updated and written back, at most SLAB_VOXELS voxels at a
+    time."""
+    dev = tsdf.device
+    S = tsdf.shape[1]
+    vl = _f32(voxel_length, dev)
+    trunc = _f32(sdf_trunc, dev)
+    Rot, t = extrinsic[:3, :3], extrinsic[:3, 3]
+    local = _fma(torch.arange(S, dtype=torch.float32, device=dev), vl,
+                 0.5 * vl)
+    chunk = max(1, SLAB_VOXELS // (S * S * S))
+    for b0 in range(0, slots.shape[0], chunk):
+        sl = slots[b0:b0 + chunk]
+        o = block_origins[b0:b0 + chunk]
+        px = (o[:, None, 0] + local)[:, :, None, None, None]
+        py = (o[:, None, 1] + local)[:, None, :, None, None]
+        pz = (o[:, None, 2] + local)[:, None, None, :, None]
+        # camera-frame centres [B, S, S, S, 3]: R p + t, the product's
+        # terms accumulated as fused multiply-adds
+        pc = _fma(pz, Rot[:, 2], _fma(py, Rot[:, 1], px * Rot[:, 0])) + t
+        cv = color_vol.index_select(0, sl) if color_channels > 0 else None
+        ts, w, cv = _update(pc, tsdf.index_select(0, sl),
+                            weight.index_select(0, sl), cv, depth,
+                            color_img, multiplier, K, trunc, _fma)
+        if cv is not None:
+            color_vol.index_copy_(0, sl, cv)
+        tsdf.index_copy_(0, sl, ts)
+        weight.index_copy_(0, sl, w)
     return tsdf, weight, color_vol
 
 

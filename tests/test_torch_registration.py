@@ -478,10 +478,10 @@ def test_torch_port_imports_no_jax():
             "mods = [m.name for m in pkgutil.walk_packages("
             "cupoch_tpu_torch.__path__, 'cupoch_tpu_torch.')]; "
             "[importlib.import_module(m) for m in mods]; "
-            "assert len(mods) >= 64, mods; "
+            "assert len(mods) >= 82, mods; "
             "assert {'cupoch_tpu_torch.' + p for p in ('camera', "
             "'odometry', 'integration', 'kinfu', 'collision', 'planning', "
-            "'kinematics')} <= set(mods), mods; "
+            "'kinematics', 'imageproc', 'io', 'bench')} <= set(mods), mods; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'cupoch_tpu' "
             "or m.startswith('cupoch_tpu.')]; "

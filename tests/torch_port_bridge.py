@@ -1,9 +1,11 @@
 """Turn the JAX package's objects into the PyTorch port's through
 numpy, so both packages compute on identical inputs: point clouds
 (with normals, colours and covariances), images and RGB-D pairs,
-camera intrinsics, features and the FGR option, triangle meshes, voxel
-and occupancy grids, distance transforms, line sets, graphs and laser
-scan buffers (the last five through the port's `from_numpy`).
+camera intrinsics, features and the FGR option, triangle meshes (bare,
+or with their normals, colours, UVs and texture), voxel and occupancy
+grids, distance transforms, line sets, graphs and laser scan buffers
+(the last five through the port's `from_numpy`), the scalable TSDF
+volume's block table and state, and SGM options.
 A helper of the port's parity tests (tests/test_torch_*.py)."""
 import numpy as np
 
@@ -84,6 +86,36 @@ def mesh(jmesh, device="cpu"):
 
     return TriangleMesh(np.array(jmesh.vertices), np.array(jmesh.triangles),
                         device=device)
+
+
+def textured_mesh(jmesh, device="cpu"):
+    """The port's mesh with the JAX mesh's vertex normals and colours,
+    corner UVs and texture, where it has them."""
+    out = mesh(jmesh, device)
+    for name in ("vertex_normals", "vertex_colors", "triangle_uvs"):
+        v = getattr(jmesh, name)
+        if v is not None:
+            setattr(out, name, np.asarray(v))
+    if jmesh.texture is not None:
+        out.texture = image(jmesh.texture, device)
+    return out
+
+
+def scalable_volume(jvol, device="cpu"):
+    """The port's ScalableTSDFVolume holding the JAX volume's block
+    table and state."""
+    from cupoch_tpu_torch.integration import ScalableTSDFVolume
+
+    return ScalableTSDFVolume.from_numpy(
+        dict(jvol._slots), np.asarray(jvol.tsdf), np.asarray(jvol.weight),
+        np.asarray(jvol.color), jvol.voxel_length, jvol.sdf_trunc,
+        int(jvol.color_type), jvol.depth_sampling_stride, device=device)
+
+
+def sgm_option(jopt):
+    from cupoch_tpu_torch.imageproc import SGMOption
+
+    return SGMOption(**vars(jopt))
 
 
 def voxel_grid(jvg, device="cpu"):

@@ -124,6 +124,27 @@ Phases, each printed on its own line:
        frames in memory; no kernel launches; then the card against the
        CPU on small inputs, and files written from card tensors
        byte-equal to those from CPU tensors;
+     - 4m. several ranks (`multi_phase`), each sub-step at D = 1 (this
+       process), 2 and 4 (`parallel.launch` ranks: NCCL, one a card,
+       where the machine has D cards, else gloo ranks sharing the card,
+       their collectives staged through the host; each printed with its
+       backend and staged payloads): the collectives against their
+       definitions; `ring_sharded_registration_icp` on the headline
+       pair (held to the true pose and to `registration_icp`, kernel-1
+       launches a rank = D x (iterations + 1), the bytes the ring moves
+       a pass; kernel 1 on rank 1's first-round shard against
+       slot_plain); `sharded_registration_icp` on the fallback cloud
+       (held to the run-grid fallback, kernel-2 launches a rank =
+       iterations GN + 1 correspondence; kernel 2 on rank 0's shard
+       against fused_plain); `global_optimization` on a sphere2500-sized
+       graph (ATE, node 0, sharded against D = 1, ms an iteration, peak
+       memory); `bundle_adjustment` at the size of BAL's Trafalgar
+       problem (RMSE, sharded against D = 1 after scale alignment);
+       `RGBDSlam` over phase 4k's 20 frames, whole and with a save and
+       restore at frame 10 (trajectory held to the truth, restored state
+       equal, ranks' graphs equal); `bench.scaling` (printed only); then
+       every path at the test sizes on the card's 2 ranks against 2 CPU
+       gloo ranks;
   5. one JSON line of per-kernel numbers, then the result line.
 
 Any failure raises and exits non-zero. Without a card it exits
@@ -131,8 +152,10 @@ non-zero before printing a result; it never falls back to the CPU.
 """
 import json
 import os
+import shutil
 import statistics
 import subprocess
+import tempfile
 import time
 
 # the H100 SXM data sheet: HBM rate and f32 rate outside the tensor cores
@@ -2591,6 +2614,779 @@ def recon_small(np, torch, ctt, dev):
                              "modules")
 
 
+# ---------------------------------------------------------------------------
+# the multi-rank phase (4m): the point-sharded and ring-sharded ICP
+# loops, the pose graph, bundle adjustment, RGB-D SLAM and the scaling
+# bench over D ranks of `parallel.launch`. Ranks are NCCL, one a card,
+# where the machine has D cards, else gloo ranks sharing the card (their
+# collectives staged through the host); D = 1 runs in this process on a
+# mesh of one rank
+MULTI_PHASE_S = 120.0
+MULTI_RANKS = (2, 4)
+SHARDED_POSE_TOL = 1e-3      # tests/test_sharded.py's limits against the
+SHARDED_FIT_TOL = 5e-3       # single-device loop
+SPHERE_RADIUS = 10.0         # m
+SPHERE_NOISE = (0.01, 0.02)  # rad and m, each edge's measurement
+PG_ITERS = 10
+PG_SHARDED_TOL = 1e-3
+PG_ATE_RATIO = 0.6           # tests/test_slam.py's pose-graph criterion
+BA_ITERS = 10
+BA_RMSE_RATIO = 0.05         # tests/test_slam.py's criteria
+BA_SHARDED_TOL = 2e-3
+BA_INTRINSICS = (100.0, 100.0, 64.0, 48.0)
+BA_BASELINE = 0.2            # m between cameras on the line
+BA_NOISE = 0.02              # m on the initial poses and points
+# RGB-D SLAM on phase 4k's room: the trajectory drifts by the pairs'
+# odometry error (phase 4k holds a pair to ODO_T_MAX = 5 mm and read
+# 1.3 mm on an H100), so 19 pairs stay within 2 cm; after a restore the
+# first frame's motion is dropped, one trajectory step more
+SLAM_T_MAX = 0.02
+SMALL_CARD_POSE_TOL = 1e-4   # card ranks against CPU ranks
+# RGB-D SLAM at 320x240, card ranks against CPU ranks: the hybrid
+# odometry's rounding differs between the two, and 10 pairs moved the
+# keyframes by 1.889e-3 to 1.935e-3 (four H100 runs; 5e-4 between the
+# packages on the CPU at one thread); a pair's own error against the
+# truth there is 1-2 mm (host run)
+SMALL_SLAM_TOL = 3e-3
+
+
+def multi_config():
+    """Phase 4m's sizes: the headline and fallback clouds, sphere2500
+    (Kaess et al., iSAM: 50 rings of 50 poses, 2500 poses and 4949
+    edges), BAL's Trafalgar problem-257-65132-pre (257 cameras, 65 132
+    landmarks, 225 911 observations in 8 slots a landmark) and phase
+    4k's 20 frames at 640x480."""
+    return {"points": N_POINTS, "side": 2.0, "fallback_side": FALLBACK_SIDE,
+            "rings": (50, 50), "ba": (257, 65132, 225911, 8),
+            "frames": RGBD_FRAMES, "scale": 1.0, "keyframe_interval": 5,
+            "save_frame": 10, "slam_t_max": SLAM_T_MAX, "scaling": True}
+
+
+def small_multi_config():
+    """The test sizes: the paths on the card's ranks against CPU
+    ranks, and in tests/test_torch_{sharded,slam}.py against the JAX
+    package."""
+    return {"points": 5000, "side": 1.0, "fallback_side": 1.0,
+            "rings": (6, 8), "ba": (6, 64, 224, 4), "frames": 7,
+            "scale": 0.5, "keyframe_interval": 2, "save_frame": 3,
+            "slam_t_max": SLAM_T_MAX, "scaling": False}
+
+
+def _rodrigues(np, w):
+    """[..., 3] rotation vectors -> [..., 3, 3] (float64)."""
+    th = np.linalg.norm(w, axis=-1)[..., None, None]
+    k = w / np.maximum(th[..., 0], 1e-300)
+    K = np.zeros(w.shape[:-1] + (3, 3))
+    K[..., 0, 1], K[..., 0, 2] = -k[..., 2], k[..., 1]
+    K[..., 1, 0], K[..., 1, 2] = k[..., 2], -k[..., 0]
+    K[..., 2, 0], K[..., 2, 1] = -k[..., 1], k[..., 0]
+    return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
+
+
+def sphere_graph(np, rings, per_ring, seed=7):
+    """A sphere2500-style graph: poses on `rings` circles of latitude of a
+    SPHERE_RADIUS sphere, `per_ring` a circle, facing along the path;
+    odometry edges i-1 -> i and loop edges i-per_ring -> i; every
+    measurement perturbed by SPHERE_NOISE; initial poses composed from
+    the noisy odometry. Returns (gt [N, 4, 4], initial [N, 4, 4], src
+    [E], tgt [E], measured [E, 4, 4]), float32 but gt (float64)."""
+    rng = np.random.default_rng(seed)
+    n = rings * per_ring
+    i = np.arange(n)
+    lat = -np.pi / 2 + np.pi * (i // per_ring + 1) / (rings + 1)
+    lon = 2 * np.pi * (i % per_ring) / per_ring
+    up = np.stack([np.cos(lat) * np.cos(lon), np.cos(lat) * np.sin(lon),
+                   np.sin(lat)], -1)
+    east = np.stack([-np.sin(lon), np.cos(lon), np.zeros(n)], -1)
+    gt = np.tile(np.eye(4), (n, 1, 1))
+    gt[:, :3, 0] = east
+    gt[:, :3, 1] = np.cross(up, east)
+    gt[:, :3, 2] = up
+    gt[:, :3, 3] = SPHERE_RADIUS * up
+    src = np.concatenate([i[:-1], i[:-per_ring]])
+    tgt = np.concatenate([i[1:], i[per_ring:]])
+    rel = np.linalg.inv(gt[src]) @ gt[tgt]
+    noise = np.tile(np.eye(4), (len(src), 1, 1))
+    noise[:, :3, :3] = _rodrigues(
+        np, rng.normal(0, SPHERE_NOISE[0], (len(src), 3)))
+    noise[:, :3, 3] = rng.normal(0, SPHERE_NOISE[1], (len(src), 3))
+    meas = rel @ noise
+    init = np.empty_like(gt)
+    init[0] = gt[0]
+    for k in range(1, n):
+        init[k] = init[k - 1] @ meas[k - 1]
+    return (gt, init.astype(np.float32), src, tgt,
+            meas.astype(np.float32))
+
+
+def pose_graph_of(ctt, init, src, tgt, meas):
+    g = ctt.slam.PoseGraph()
+    g.nodes = [ctt.slam.PoseGraphNode(p) for p in init]
+    g.edges = [ctt.slam.PoseGraphEdge(int(s), int(t), m)
+               for s, t, m in zip(src, tgt, meas)]
+    return g
+
+
+def translation_ate(np, poses, gt):
+    return float(np.sqrt(np.mean(np.sum(
+        (np.asarray(poses)[:, :3, 3] - gt[:, :3, 3]) ** 2, -1))))
+
+
+def ba_problem(np, n_cams, n_pts, n_obs, k, seed=8):
+    """A BA problem made as tests/test_slam.py makes its own, with BAL's
+    shape: cameras on a line BA_BASELINE m apart looking along +z,
+    camera 0 at the origin (the world is its frame), landmarks in the
+    slab z in [2, 3] m over the line widened by 1 m at each end, each
+    seen by its 2 to k nearest cameras (n_obs observations in all), as a
+    walk's photos overlap; exact measurements, the translations of
+    cameras 1.. and the points moved by BA_NOISE. Returns (poses0,
+    points0, obs_cam, obs_uv, intrinsics, gt_poses, gt_points) as
+    float32 / int32 numpy."""
+    rng = np.random.default_rng(seed)
+    gt_poses = np.tile(np.eye(4, dtype=np.float32), (n_cams, 1, 1))
+    gt_poses[:, 0, 3] = -BA_BASELINE * np.arange(n_cams)
+    span = BA_BASELINE * (n_cams - 1)
+    gt_pts = rng.uniform([-1.0, -1.0, 2.0], [span + 1.0, 1.0, 3.0],
+                         size=(n_pts, 3)).astype(np.float32)
+    base = n_obs // n_pts
+    m = np.full(n_pts, base)
+    m[rng.choice(n_pts, n_obs - base * n_pts, replace=False)] += 1
+    if m.max() > k or base < 2 or n_cams < k:
+        raise ValueError("observations do not fit the slots")
+    # the k nearest cameras lie among the 2k + 1 round the nearest one
+    near = np.clip(np.rint(gt_pts[:, 0] / BA_BASELINE).astype(np.int64), 0,
+                   n_cams - 1)
+    cand = near[:, None] + np.arange(-k, k + 1)
+    dist = np.abs(gt_pts[:, :1] - BA_BASELINE * cand)
+    dist[(cand < 0) | (cand >= n_cams)] = np.inf
+    order = np.argsort(dist, axis=1, kind="stable")[:, :k]
+    cams = np.take_along_axis(cand, order, 1)
+    obs_cam = np.where(np.arange(k)[None, :] < m[:, None], cams, -1)
+    T = gt_poses[cams].astype(np.float64)
+    pc = np.einsum("lkij,lj->lki", T[..., :3, :3], gt_pts) + T[..., :3, 3]
+    fx, fy, cx, cy = BA_INTRINSICS
+    obs_uv = np.stack([fx * pc[..., 0] / pc[..., 2] + cx,
+                       fy * pc[..., 1] / pc[..., 2] + cy],
+                      -1).astype(np.float32)
+    poses0 = gt_poses.copy()
+    poses0[1:, :3, 3] += rng.normal(0, BA_NOISE, (n_cams - 1, 3))
+    pts0 = gt_pts + rng.normal(0, BA_NOISE, gt_pts.shape).astype(np.float32)
+    return (poses0, pts0, obs_cam.astype(np.int32), obs_uv,
+            np.float32(BA_INTRINSICS), gt_poses, gt_pts)
+
+
+def scale_aligned_gap(np, poses_a, poses_b):
+    """Largest gap of camera translations 1.. of `poses_a`, scaled by
+    the least-squares factor onto `poses_b` (the monocular gauge), from
+    `poses_b`'s."""
+    ta = np.asarray(poses_a)[1:, :3, 3].astype(np.float64)
+    tb = np.asarray(poses_b)[1:, :3, 3].astype(np.float64)
+    s = float(np.sum(ta * tb) / max(np.sum(ta * ta), 1e-12))
+    return float(np.abs(s * ta - tb).max())
+
+
+def slam_frames(np, cfg, directory):
+    """Phase 4k's room at cfg's scale, its frames (colour uint8, depth
+    uint16 mm) written to an .npz under `directory`: (intrinsic as a
+    dict, the file's path). Ranks read the file: a spawned rank's
+    arguments go through a pipe that its start blocks on."""
+    import cupoch_tpu_torch as ctt
+    intr, _ = kinfu_config(ctt)
+    if cfg["scale"] != 1.0:
+        intr = intr.scale(cfg["scale"])
+    arrays = {}
+    for k in range(cfg["frames"]):
+        rgb, depth = room_depth(np, rgbd_pose(np, k), intr)
+        arrays[f"c{k}"] = rgb
+        arrays[f"d{k}"] = np.round(depth * RGBD_DEPTH_SCALE).astype(np.uint16)
+    path = os.path.join(directory, f"frames_{intr.width}.npz")
+    np.savez(path, **arrays)
+    return intr.to_dict(), path
+
+
+def load_frames(np, path):
+    """[(colour, depth)] of a `slam_frames` file."""
+    with np.load(path) as z:
+        return [(z[f"c{k}"], z[f"d{k}"]) for k in range(len(z.files) // 2)]
+
+
+def slam_option(ctt, cfg):
+    """Keyframes every cfg["keyframe_interval"] frames, a loop closure
+    tried at every keyframe against keyframes two or more back, and an
+    optimisation every 2 keyframes."""
+    return ctt.slam.SlamOption(
+        keyframe_interval=cfg["keyframe_interval"], loop_closure_interval=1,
+        loop_closure_min_gap=2, optimize_every_n_keyframes=2)
+
+
+def multi_slam(intr_dict, frames_path, cfg, mesh):
+    """RGBDSlam over the frames of `frames_path` (`slam_frames`) without
+    a break, then again with a save
+    after frame cfg["save_frame"] and a restore into a new instance that
+    runs on; each run ends with one more optimisation. Rank 0 tracks; the
+    others pass None. Returns both runs' states and the tracked frames'
+    indices, the saved and restored states, and ms a frame."""
+    import tempfile
+
+    import numpy as np
+
+    import cupoch_tpu_torch as ctt
+    intr = ctt.camera.PinholeCameraIntrinsic.from_dict(intr_dict)
+    opt = slam_option(ctt, cfg)
+    lead = mesh.rank == 0
+    dev = mesh.device
+    frames = load_frames(np, frames_path) if lead else None
+
+    def frame(k):
+        if not lead:
+            return None
+        c, d = frames[k]
+        return ctt.geometry.RGBDImage.create_from_color_and_depth(
+            ctt.geometry.Image(c, device=dev),
+            ctt.geometry.Image(d, device=dev))
+
+    def run(slam, ks):
+        for k in ks:
+            slam.process_frame(frame(k))
+        slam.optimize()
+
+    n, s = cfg["frames"], cfg["save_frame"]
+    whole = ctt.slam.RGBDSlam(intr, opt, mesh=mesh)
+    t0 = time.perf_counter()
+    run(whole, range(n))
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    first = ctt.slam.RGBDSlam(intr, opt, mesh=mesh)
+    for k in range(s + 1):
+        first.process_frame(frame(k))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "slam.npz")
+        first.save(path)
+        again = ctt.slam.RGBDSlam(intr, opt, mesh=mesh)
+        again.restore(path)
+    saved = dict(first.state(), frame_id=first.frame_id,
+                 since_opt=first._since_opt)
+    restored = dict(again.state(), frame_id=again.frame_id,
+                    since_opt=again._since_opt)
+    run(again, range(s + 1, n))
+    # the frame after a restore re-anchors tracking and adds no pose
+    resumed = list(range(s + 1)) + list(range(s + 2, n))
+    return {"whole": whole.state(), "resumed": again.state(),
+            "resumed_frames": resumed, "saved": saved,
+            "restored": restored, "ms": ms}
+
+
+def slam_errors(np, traj, frames):
+    """Translation error of each tracked pose against the trajectory's
+    truth (the first camera's frame is the world)."""
+    return np.asarray([np.linalg.norm(T[:3, 3] - rgbd_pose(np, k)[:3, 3])
+                       for T, k in zip(traj, frames)])
+
+
+def check_multi_slam(np, out, t_max, what):
+    """The SLAM limits on one rank's `multi_slam` output: trajectory
+    errors within `t_max`, and after the restore one step more."""
+    for key in out["saved"]:
+        if not np.array_equal(np.asarray(out["saved"][key]),
+                              np.asarray(out["restored"][key])):
+            raise AssertionError(f"{what}: restored {key} differs from the "
+                                 f"saved one")
+    n = len(out["whole"]["trajectory"])
+    e_whole = slam_errors(np, out["whole"]["trajectory"], range(n))
+    e_res = slam_errors(np, out["resumed"]["trajectory"],
+                        out["resumed_frames"])
+    step = float(np.linalg.norm(RGBD_STEP_SHIFT))
+    # a dropped step also turns the rest by RGBD_STEP_DEG, which moves
+    # them by under 1 mm over these few centimetres
+    limit_res = t_max + step + 1e-3
+    lc = int(out["whole"]["edge_uncertain"].sum())
+    if e_whole.max() > t_max or e_res.max() > limit_res \
+            or not np.isfinite(out["whole"]["keyframe_poses"]).all():
+        raise AssertionError(
+            f"{what}: trajectory errors {e_whole.max():.4e} (limit "
+            f"{t_max}) and after the restore {e_res.max():.4e} (limit "
+            f"{limit_res:.4e})")
+    return e_whole.max(), e_res.max(), lc
+
+
+def multi_collectives(mesh):
+    """Each collective of the mesh on values that depend on the rank."""
+    import torch
+    x = torch.arange(4, dtype=torch.float32, device=mesh.device) \
+        + 10.0 * mesh.rank
+    return {"psum": mesh.psum(x), "pmin": mesh.pmin(x),
+            "pmax": mesh.pmax(x), "ppermute": mesh.ppermute(x),
+            "all_gather": mesh.all_gather(x[None]),
+            "broadcast_tensor": mesh.broadcast(x),
+            "broadcast": mesh.broadcast_object({"from": mesh.rank})}
+
+
+def check_collectives(np, outs):
+    """`multi_collectives` of every rank against what each collective
+    must give."""
+    D = len(outs)
+    xs = [np.arange(4, dtype=np.float32) + 10.0 * r for r in range(D)]
+    for r, o in enumerate(outs):
+        want = {"psum": sum(xs), "pmin": xs[0], "pmax": xs[-1],
+                "ppermute": xs[(r - 1) % D], "all_gather": np.stack(xs),
+                "broadcast_tensor": xs[0]}
+        for k, v in want.items():
+            if not np.array_equal(o[k], v):
+                raise AssertionError(f"{k} at rank {r} of {D}: {o[k]}")
+        if o["broadcast"] != {"from": 0}:
+            raise AssertionError(f"broadcast at rank {r}: {o['broadcast']}")
+
+
+def multi_ring(cfg, mesh):
+    """ring_sharded_registration_icp on the headline pair."""
+    import numpy as np
+
+    import cupoch_tpu_torch as ctt
+    tgt, tn, src, _ = _headline_clouds(np, cfg["points"], side=cfg["side"])
+    return ctt.parallel.ring_sharded_registration_icp(
+        src, tgt, tn, RADIUS, mesh, max_iteration=ITERS)
+
+
+def multi_point(cfg, mesh):
+    """sharded_registration_icp on the fallback cloud."""
+    import numpy as np
+
+    import cupoch_tpu_torch as ctt
+    tgt, tn, src, _ = _headline_clouds(np, cfg["points"],
+                                       side=cfg["fallback_side"])
+    return ctt.parallel.sharded_registration_icp(
+        src, tgt, tn, RADIUS, mesh, max_iteration=ITERS)
+
+
+def ring_round_check(cfg, mesh):
+    """On rank 1 of 2: kernel 1 on the first round's shard (rank 1's
+    table shard, global supertiles Gd..) against slot_plain; (equal share,
+    largest score gap, Gd, valid queries). Other ranks, and ranks on the
+    CPU, return None."""
+    if mesh.size != 2 or mesh.rank != 1 or mesh.device.type != "cuda":
+        return None
+    import numpy as np
+    import torch
+
+    from cupoch_tpu_torch.knn import poolgrid, poolgrid_slot
+    from cupoch_tpu_torch.parallel import sharded
+    from cupoch_tpu_torch.registration import fused_icp
+    from cupoch_tpu_torch.registration.estimation import (
+        TransformationEstimationType as ET)
+    tgt, tn, src, _ = _headline_clouds(np, cfg["points"], side=cfg["side"])
+    dev = mesh.device
+    src_l, mask_l = sharded._source_shard(src, mesh)
+    attrs, code = fused_icp.make_target_attrs(
+        ET.PointToPlane, torch.as_tensor(tgt, device=dev),
+        torch.as_tensor(tn, device=dev))
+    plan = poolgrid.plan_poolgrid(tgt, RADIUS, query_points=src, est=code,
+                                  shards=2)
+    grid = sharded.shard_pool_table(poolgrid.make_poolgrid(
+        torch.as_tensor(tgt, device=dev), attrs, plan["origin"],
+        plan["cell_size"], plan["dims"], plan["cap"], plan["kc"], est=code,
+        tile=plan["tile"], shards=2, active_cells=plan["active_cells"]),
+        mesh)
+    Gd = grid.n_tiles
+    qpool, _, _ = poolgrid.bin_queries_pool(
+        src_l, torch.eye(4), grid.origin, grid.cell_size, grid.dims,
+        plan["qp"], grid.tile, mask=mask_l, shards=2,
+        cell_map=grid.cell_map, n_rank_pad=2 * Gd * grid.tile)
+    block = qpool.reshape(2, Gd, *qpool.shape[1:])[1]
+    params = poolgrid.make_params(torch.eye(4), RADIUS ** 2, grid)
+    same, gap = slot_gap(torch, grid, block, params,
+                         poolgrid_slot.slot_pass(grid, block, params),
+                         poolgrid_slot.slot_plain(grid, block, params),
+                         "rank 1's table shard")
+    return same, gap, Gd, int((block[:, 3] >= 0).sum())
+
+
+def point_shard_check(cfg, mesh):
+    """On rank 0: kernel 2 in GN mode (point-to-plane) on its shard of
+    the fallback cloud against fused_plain; (relative sum gap, pose
+    update gap, queries). Other ranks, and ranks on the CPU, return None."""
+    if mesh.rank != 0 or mesh.device.type != "cuda":
+        return None
+    import numpy as np
+    import torch
+
+    from cupoch_tpu_torch.knn import rungrid, rungrid_fused
+    from cupoch_tpu_torch.parallel import sharded
+    from cupoch_tpu_torch.registration import fused_icp
+    from cupoch_tpu_torch.registration.estimation import (
+        TransformationEstimationType as ET)
+    tgt, tn, src, _ = _headline_clouds(np, cfg["points"],
+                                       side=cfg["fallback_side"])
+    dev = mesh.device
+    src_l, mask_l = sharded._source_shard(src, mesh)
+    attrs, code = fused_icp.make_target_attrs(
+        ET.PointToPlane, torch.as_tensor(tgt, device=dev),
+        torch.as_tensor(tn, device=dev))
+    plan = rungrid.plan_rungrid(tgt, RADIUS, query_points=src, nch=4)
+    grid = rungrid.make_rungrid(
+        torch.as_tensor(tgt, device=dev), attrs, plan["origin"],
+        plan["cell_size"], plan["dims"], plan["cap"], est=code,
+        kc=plan["kc"])
+    qsoa, qidx = rungrid.bin_queries(src_l, src_l, grid.origin,
+                                     grid.cell_size, grid.dims,
+                                     plan["qcap"], mask=mask_l)
+    params = rungrid.make_params(torch.eye(4), RADIUS ** 2, grid)
+    sk = rungrid_fused.fused_query(grid, qsoa, qidx, params, code, False)
+    sp = rungrid_fused.fused_plain(grid, qsoa, qidx, params, code, False)
+    rel, d_pose = fused_gn_gap(fused_icp, ET.PointToPlane, sk.cpu(),
+                               sp.cpu())
+    return rel, d_pose, int(mask_l.sum())
+
+
+def multi_pose_graph(cfg, mesh):
+    """global_optimization of the sphere graph over the mesh: (poses,
+    ms an iteration, peak MB on the device)."""
+    import numpy as np
+    import torch
+
+    import cupoch_tpu_torch as ctt
+    _, init, src, tgt, meas = sphere_graph(np, *cfg["rings"])
+    g = pose_graph_of(ctt, init, src, tgt, meas)
+    on_card = mesh.device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize(mesh.device)
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+    t0 = time.perf_counter()
+    ctt.slam.global_optimization(
+        g, ctt.slam.GlobalOptimizationOption(max_iteration=PG_ITERS),
+        mesh=mesh)
+    ms = (time.perf_counter() - t0) * 1e3 / PG_ITERS
+    peak = torch.cuda.max_memory_allocated(mesh.device) / 2 ** 20 \
+        if on_card else 0.0
+    return np.stack([n.pose for n in g.nodes]), ms, peak
+
+
+def multi_ba(cfg, mesh):
+    """bundle_adjustment of the BA problem over the mesh: (poses,
+    points, initial and final reprojection RMSE, ms an iteration, peak
+    MB)."""
+    import numpy as np
+    import torch
+
+    import cupoch_tpu_torch as ctt
+    C, L, n_obs, k = cfg["ba"]
+    prob = ctt.slam.BAProblem(*ba_problem(np, C, L, n_obs, k)[:5])
+    on_card = mesh.device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize(mesh.device)
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+    t0 = time.perf_counter()
+    poses, points, _ = ctt.slam.bundle_adjustment(prob, BA_ITERS,
+                                                  mesh=mesh)
+    ms = (time.perf_counter() - t0) * 1e3 / BA_ITERS
+    peak = torch.cuda.max_memory_allocated(mesh.device) / 2 ** 20 \
+        if on_card else 0.0
+    rmse0 = ctt.slam.reprojection_rmse(prob, device=mesh.device)
+    rmse = ctt.slam.reprojection_rmse(prob, poses, points)
+    return poses, points, rmse0, rmse, ms, peak
+
+
+def multi_small(intr_dict, frames_path, mesh):
+    """Every path of the phase at the test sizes (a job for the card's
+    ranks and for CPU ranks, compared by `check_small_multi`)."""
+    cfg = small_multi_config()
+    return {"collectives": multi_collectives(mesh),
+            "ring": multi_ring(cfg, mesh), "point": multi_point(cfg, mesh),
+            "pose_graph": multi_pose_graph(cfg, mesh)[0],
+            "ba": multi_ba(cfg, mesh)[:2],
+            "slam": multi_slam(intr_dict, frames_path, cfg, mesh)}
+
+
+def check_small_multi(np, card, cpu):
+    """The card ranks' `multi_small` against the CPU ranks': poses within
+    SMALL_CARD_POSE_TOL (ICP, the pose graph), fitness within 1e-3, BA
+    within BA_SHARDED_TOL after scale alignment, SLAM keyframes within
+    SMALL_SLAM_TOL; returns the largest gaps."""
+    gaps = {}
+    for key in ("ring", "point"):
+        gaps[key] = float(np.abs(card[key][0] - cpu[key][0]).max())
+        if gaps[key] > SMALL_CARD_POSE_TOL \
+                or abs(card[key][1] - cpu[key][1]) > 1e-3:
+            raise AssertionError(f"small {key} ICP: card {card[key][:4]} "
+                                 f"against CPU {cpu[key][:4]}")
+    gaps["pose_graph"] = float(np.abs(card["pose_graph"]
+                                      - cpu["pose_graph"]).max())
+    gaps["ba"] = scale_aligned_gap(np, card["ba"][0], cpu["ba"][0])
+    gaps["slam"] = float(np.abs(card["slam"]["whole"]["keyframe_poses"]
+                                - cpu["slam"]["whole"]["keyframe_poses"])
+                         .max())
+    if gaps["pose_graph"] > SMALL_CARD_POSE_TOL \
+            or gaps["ba"] > BA_SHARDED_TOL or gaps["slam"] > SMALL_SLAM_TOL:
+        raise AssertionError(f"small inputs, card against CPU: {gaps}")
+    return gaps
+
+
+def multi_rank_jobs(ctt, D, cfg, intr_dict, frames, small):
+    """{name: job} that every rank of a D-rank group runs, in order."""
+    from cupoch_tpu_torch.bench import scaling
+    from cupoch_tpu_torch.parallel.launch import Job
+    jobs = {"collectives": Job(multi_collectives),
+            "ring": Job(multi_ring, (cfg,)),
+            "ring check": Job(ring_round_check, (cfg,)),
+            "point": Job(multi_point, (cfg,)),
+            "point check": Job(point_shard_check, (cfg,)),
+            "pose graph": Job(multi_pose_graph, (cfg,)),
+            "ba": Job(multi_ba, (cfg,)),
+            "slam": Job(multi_slam, (intr_dict, frames, cfg))}
+    if cfg["scaling"] and D > 1:
+        if D == max(MULTI_RANKS):
+            jobs["scaling"] = Job(scaling.run_scaling)
+        jobs["split"] = Job(scaling.collective_split)
+    if small is not None:
+        jobs["small"] = Job(multi_small, small)
+    return jobs
+
+
+def _by_name(jobs, ranks_out):
+    """Per rank, {job name: the launcher's record}."""
+    return [dict(zip(jobs, r)) for r in ranks_out]
+
+
+def multi_phase(np, torch, ctt, reset_counts, counts, path_counts, card,
+                dev="cuda", config=multi_config, refs=None):
+    """Phase 4m: every sub-step at D = 1 (this process, a mesh of one
+    rank) and in one group of D ranks for each D of MULTI_RANKS, held to
+    the limits above, and the paths at the test sizes on the card's 2
+    ranks against 2 CPU gloo ranks. D = 1 runs first, alone on the card;
+    then the rank groups and the CPU ranks run at the same time, so
+    each group's times include the other's load, and every line says so
+    (the phase limit does not fit them one after another: a group takes
+    15-25 s to start its ranks and to load their kernels). `refs`: the
+    single-device
+    `registration_icp` results on the headline pair and on the fallback
+    cloud at this phase's settings, when the caller has them (phase 4
+    computes both), else computed here."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase4m_")
+    try:
+        _multi_phase(np, torch, ctt, reset_counts, counts, path_counts,
+                     card, dev, config(), small_multi_config(), refs, tmp,
+                     t_phase)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _multi_phase(np, torch, ctt, reset_counts, counts, path_counts, card,
+                 dev, cfg, small_cfg, refs, tmp, t_phase):
+    """`multi_phase`'s body; its frame files go to `tmp`."""
+    from cupoch_tpu_torch.parallel import launch
+    # a rehearsal on the CPU runs the plain versions, which count no
+    # launch
+    on_card = dev != "cpu"
+    intr_dict, frames = slam_frames(np, cfg, tmp)
+    small = slam_frames(np, small_cfg, tmp)
+    marks = [("scene", time.perf_counter())]
+    if on_card:
+        torch.cuda.empty_cache()
+    tgt, tn, src, T_true = _headline_clouds(np, cfg["points"],
+                                            side=cfg["side"])
+    ftgt, ftn, fsrc, fT_true = _headline_clouds(np, cfg["points"],
+                                                side=cfg["fallback_side"])
+    pt2pl = ctt.registration.TransformationEstimationPointToPlane()
+    crit = ctt.registration.ICPConvergenceCriteria(REL_TOL, REL_TOL, ITERS)
+
+    def single(s, t, n):
+        target = ctt.geometry.PointCloud(torch.as_tensor(t, device=dev),
+                                         device=dev)
+        target.normals = torch.as_tensor(n, device=dev)
+        return ctt.registration.registration_icp(
+            ctt.geometry.PointCloud(torch.as_tensor(s, device=dev),
+                                    device=dev), target,
+            RADIUS, estimation=pt2pl, criteria=crit)
+
+    ref_ring, ref_point = refs if refs is not None else (
+        single(src, tgt, tn), single(fsrc, ftgt, ftn))
+    plan = ctt.knn.poolgrid.plan_poolgrid(tgt, RADIUS, query_points=src,
+                                          est=2)
+    n_cells = plan["active_cells"].size \
+        if plan["active_cells"] is not None else int(np.prod(plan["dims"]))
+    gt_sphere, init_sphere = sphere_graph(np, *cfg["rings"])[:2]
+    C, L, n_obs, k = cfg["ba"]
+    marks.append(("references", time.perf_counter()))
+
+    # D = 1: the same jobs in this process on a mesh of one rank, alone
+    # on the card
+    jobs = multi_rank_jobs(ctt, 1, cfg, intr_dict, frames, None)
+    out1 = {}
+    for name, job in jobs.items():
+        m = ctt.parallel.make_point_mesh(1, device=dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = job.fn(*job.args, mesh=m)
+        if on_card:
+            torch.cuda.synchronize()
+        out1[name] = {"result": launch.to_numpy(res),
+                      "seconds": time.perf_counter() - t0,
+                      "launches": counts(), "staged": m.staged,
+                      "staged_bytes": m.staged_bytes}
+    groups = {1: ("one rank, run alone", [out1])}
+    marks.append(("D=1", time.perf_counter()))
+    # then the rank groups and the CPU ranks, all at the same time
+    started = {"cpu": ({"small": launch.Job(multi_small, small)},
+                       launch.start_ranks([launch.Job(multi_small, small)],
+                                          2, backend="gloo", device="cpu"))}
+    for D in MULTI_RANKS:
+        backend = "nccl" if on_card and torch.cuda.device_count() >= D \
+            else "gloo"
+        jobs = multi_rank_jobs(ctt, D, cfg, intr_dict, frames,
+                               small if D == 2 else None)
+        started[D] = (jobs, launch.start_ranks(
+            list(jobs.values()), D, backend=backend, device=dev), backend)
+    for D in MULTI_RANKS:
+        jobs, handle, backend = started[D]
+        groups[D] = (backend, _by_name(jobs, handle.join()))
+        marks.append((f"D={D} joined", time.perf_counter()))
+    cpu_small = started["cpu"][1].join()
+    marks.append(("CPU ranks joined", time.perf_counter()))
+
+    pg_ref = ba_ref = None
+    for D in (1,) + MULTI_RANKS:
+        backend, ranks = groups[D]
+        shared = D > 1 and dev != "cpu" and torch.cuda.device_count() < D
+        beside = ", ".join(f"the D={o} group" for o in MULTI_RANKS
+                           if o != D) + " and 2 CPU ranks"
+        where = f"D={D} ({backend}" + (
+            ", ranks sharing one card" if shared else "") + (
+            f", at the same time as {beside})" if D > 1 else ")")
+        res = [{k: j["result"] for k, j in r.items()} for r in ranks]
+        staged = [sum(j["staged"] for j in r.values()) for r in ranks]
+        staged_b = [sum(j["staged_bytes"] for j in r.values())
+                    for r in ranks]
+        secs = {k: round(max(r[k]["seconds"] for r in ranks), 2)
+                for k in ranks[0]}
+        print(f"multi {where}: {D} rank(s) on {dev}; host-staged "
+              f"collectives a rank {staged} ({[b / 1e9 for b in staged_b]} "
+              f"GB); seconds a job (the slowest rank) {secs}")
+        check_collectives(np, [r["collectives"] for r in res])
+        # ring ICP
+        for r, (T, fit, rmse, it, secs) in enumerate(x["ring"] for x in res):
+            lc = ranks[r]["ring"]["launches"]
+            pose_err = float(np.abs(T - T_true).max())
+            ref_err = float(np.abs(T - ref_ring.transformation).max())
+            if pose_err > POSE_TOL or fit < 0.99 or ref_err > \
+                    SHARDED_POSE_TOL or abs(fit - ref_ring.fitness) > \
+                    SHARDED_FIT_TOL or lc["slot"] != on_card * D * (it + 1):
+                raise AssertionError(
+                    f"ring ICP {where} rank {r}: pose error {pose_err}, "
+                    f"fitness {fit}, against registration_icp {ref_err}, "
+                    f"slot launches {lc['slot']} for {it} iterations")
+            path_counts[f"4m ring {where} rank {r}"] = lc
+        T, fit, rmse, it, secs = res[0]["ring"]
+        rows = -(-n_cells // (plan["tile"] * D)) * plan["tile"] * D
+        shard_gb = rows * plan["kc"] * 16 / D / 1e9
+        print(f"path: ring_sharded_registration_icp {where}: fitness "
+              f"{fit:.6f} rmse {rmse:.6e} iterations {it} pose error "
+              f"{np.abs(T - T_true).max():.3e}, against registration_icp "
+              f"{np.abs(T - ref_ring.transformation).max():.3e}; slot "
+              f"launches a rank "
+              f"{[r['ring']['launches']['slot'] for r in ranks]}"
+              f"; {secs:.3f} s (grid build and loop, rank 0); the ring "
+              f"moves {(D - 1) * shard_gb:.3f} GB a rank a pass "
+              f"({D - 1} x a {shard_gb:.3f} GB shard; staged "
+              f"{ranks[0]['ring']['staged_bytes'] / max(it + 1, 1) / 1e9:.3f} "
+              f"GB a pass on rank 0)")
+        if D == 2 and res[1]["ring check"] is not None:
+            same, gap, Gd, nq = res[1]["ring check"]
+            print(f"kernel[slot ring shard]: rank 1's first round on its "
+                  f"table shard (global supertiles {Gd}..), {nq} valid "
+                  f"queries: "
+                  f"slots equal on {same:.6f}, max score gap {gap}")
+        # point-sharded ICP
+        for r, (T, fit, rmse, it, secs) in enumerate(x["point"] for x in res):
+            lc = ranks[r]["point"]["launches"]
+            ref_err = float(np.abs(T - ref_point.transformation).max())
+            if np.abs(T - fT_true).max() > POSE_TOL or fit < 0.99 \
+                    or ref_err > SHARDED_POSE_TOL \
+                    or abs(fit - ref_point.fitness) > SHARDED_FIT_TOL \
+                    or lc["fused_gn"] != on_card * it \
+                    or lc["fused_corres"] != on_card:
+                raise AssertionError(
+                    f"point-sharded ICP {where} rank {r}: fitness {fit}, "
+                    f"against the run-grid fallback {ref_err}, launches "
+                    f"{lc} for {it} iterations")
+            path_counts[f"4m point {where} rank {r}"] = lc
+        T, fit, rmse, it, secs = res[0]["point"]
+        print(f"path: sharded_registration_icp {where}: fitness {fit:.6f} "
+              f"rmse {rmse:.6e} iterations {it} pose error "
+              f"{np.abs(T - fT_true).max():.3e}, against the run-grid "
+              f"fallback {np.abs(T - ref_point.transformation).max():.3e}; "
+              f"fused launches on rank 0 {ranks[0]['point']['launches']}; "
+              f"{secs:.3f} s")
+        if res[0]["point check"] is not None:
+            rel, d_pose, nq = res[0]["point check"]
+            print(f"kernel[fused GN, rank 0's shard] {where}: {nq} points, "
+                  f"sums within {rel:.2e} of fused_plain's, pose update "
+                  f"{d_pose:.2e}")
+        # pose graph
+        poses, ms, peak = res[0]["pose graph"]
+        if any(not np.array_equal(r["pose graph"][0], poses) for r in res):
+            raise AssertionError(f"pose graph {where}: ranks differ")
+        before = translation_ate(np, init_sphere, gt_sphere)
+        after = translation_ate(np, poses, gt_sphere)
+        anchor = float(np.abs(poses[0] - init_sphere[0]).max())
+        if D == 1:
+            pg_ref = poses
+        gap = float(np.abs(poses - pg_ref).max())
+        print(f"path: global_optimization {where}, {len(poses)} poses, "
+              f"{PG_ITERS} iterations: ATE {before:.4f} -> {after:.4f} m, "
+              f"node 0 moved {anchor:.2e}, against D=1 {gap:.2e}; "
+              f"{ms:.1f} ms an iteration, peak {peak:.0f} MB a rank")
+        if not after < PG_ATE_RATIO * before or anchor > 1e-6 \
+                or gap > PG_SHARDED_TOL:
+            raise AssertionError(f"pose graph {where} missed its limits")
+        # bundle adjustment
+        bposes, bpoints, rmse0, rmse, ms, peak = res[0]["ba"]
+        if D == 1:
+            ba_ref = bposes
+        gap = scale_aligned_gap(np, bposes, ba_ref)
+        print(f"path: bundle_adjustment {where}, {C} cameras, {L} "
+              f"landmarks, {n_obs} observations: reprojection RMSE "
+              f"{rmse0:.4f} -> {rmse:.3e} px, against D=1 after scale "
+              f"alignment {gap:.2e}; {ms:.1f} ms an iteration, peak "
+              f"{peak:.0f} MB a rank")
+        if not rmse < BA_RMSE_RATIO * rmse0 or gap > BA_SHARDED_TOL:
+            raise AssertionError(f"bundle adjustment {where} missed its "
+                                 f"limits")
+        # RGB-D SLAM
+        out = res[0]["slam"]
+        e_whole, e_res, lc = check_multi_slam(np, out, cfg["slam_t_max"],
+                                          f"RGBDSlam {where}")
+        for r in res[1:]:
+            for key, v in out["whole"].items():
+                if not np.array_equal(np.asarray(v),
+                                      np.asarray(r["slam"]["whole"][key])):
+                    raise AssertionError(f"RGBDSlam {where}: ranks' {key} "
+                                         f"differ")
+        print(f"path: RGBDSlam {where}, {cfg['frames']} frames: "
+              f"{len(out['whole']['keyframe_poses'])} keyframes, {lc} loop "
+              f"closure(s); trajectory error max {e_whole:.4e} m, after the "
+              f"restore at frame {cfg['save_frame']} {e_res:.4e} m; restored "
+              f"state equal to the saved one"
+              f"{'; ranks equal' if D > 1 else ''}; {out['ms']:.1f} ms a "
+              f"frame")
+        for row in res[0].get("scaling", ()):
+            print(f"bench.scaling run_scaling {where}: " + json.dumps(row))
+        if "split" in res[0]:
+            print(f"bench.scaling collective_split {where}: "
+                  + json.dumps(res[0]["split"]))
+    gaps = check_small_multi(np, groups[2][1][0]["small"]["result"],
+                             cpu_small[0][0]["result"])
+    print(f"multi small inputs, card ranks against CPU gloo ranks (D=2): "
+          f"largest gaps {gaps}")
+    phase_s = time.perf_counter() - t_phase
+    parts, last = [], t_phase
+    for name, t in marks:
+        parts.append(f"{name} {t - last:.1f}")
+        last = t
+    print(f"phase 4m: {phase_s:.1f} s ({', '.join(parts)}; D = 1 ran "
+          f"alone, then the groups and the CPU ranks together)")
+    if phase_s > MULTI_PHASE_S:
+        raise AssertionError(f"phase 4m took {phase_s:.1f} s")
+
+
 def _on(ctt, obj, device):
     """A copy of a mesh or cloud on `device`."""
     G = ctt.geometry
@@ -3673,18 +4469,8 @@ def main():
     )
     from cupoch_tpu_torch.utility import nvcc
 
-    def reset_counts():
-        poolgrid_slot.launches = 0
-        rungrid_fused.launches.update(corres=0, gn=0)
-        rungrid_gmm.launches = 0
-        rollgrid_nn.launches = 0
-
-    def counts():
-        return {"slot": poolgrid_slot.launches,
-                "fused_corres": rungrid_fused.launches["corres"],
-                "fused_gn": rungrid_fused.launches["gn"],
-                "gmm": rungrid_gmm.launches,
-                "nn": rollgrid_nn.launches}
+    from cupoch_tpu_torch.parallel.launch import (
+        launch_counts as counts, reset_launch_counts as reset_counts)
 
     # 1. device
     card = subprocess.run(
@@ -3992,6 +4778,10 @@ def main():
     # 4s. scalable volume, mesh operations, stereo, files and the ATE
     reconstruct_phase(np, torch, ctt, reset_counts, counts, path_counts,
                       card)
+    # 4m. the sharded ICP loops, the SLAM backend and the scaling bench
+    # over 1, 2 and 4 ranks
+    multi_phase(np, torch, ctt, reset_counts, counts, path_counts, card,
+                refs=(res, fres))
 
     # 5. per-kernel numbers, then the result
     print(json.dumps({"path_launches": path_counts,

@@ -23,8 +23,10 @@ from . import (  # noqa: E402
     kinfu,
     knn,
     odometry,
+    parallel,
     planning,
     registration,
+    slam,
     utility,
 )
 # the geometry's to_*_dlpack / from_*_dlpack methods
@@ -32,4 +34,4 @@ from .utility import dl_converter  # noqa: E402,F401
 
 __all__ = ["bench", "camera", "collision", "geometry", "imageproc",
            "integration", "io", "kinematics", "kinfu", "knn", "odometry",
-           "planning", "registration", "utility"]
+           "parallel", "planning", "registration", "slam", "utility"]

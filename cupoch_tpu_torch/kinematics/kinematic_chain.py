@@ -3,18 +3,22 @@ kinematic_chain.h:32-110).
 
 The URDF is parsed and the Frame tree of links and joints walked on the
 host in numpy, as the reference does: joint poses are small 4x4 chains.
-The links' shapes are the port's primitives, and their meshes live on
-the chain's `device`. A link shape given as a mesh file needs the mesh
-readers of `io`, which the port does not have yet: parsing one raises
-NotImplementedError."""
+The links' shapes are the port's primitives, or meshes read from the
+files the URDF names (`package://` stripped, relative to the URDF's
+directory, scaled and moved to the shape's origin, as the reference
+does); their meshes live on the chain's `device`. A mesh file that is
+missing or fails to read leaves the shape without a mesh (a failed read
+logs a warning), and the link is kept."""
 from __future__ import annotations
 
 import copy
 import enum
+import os
 import xml.etree.ElementTree as ET
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from ..collision.primitives import Box, Cylinder, Primitive, Sphere
 from ..utility import console
@@ -104,7 +108,28 @@ def _origin_to_matrix(elem) -> np.ndarray:
     return T
 
 
-def _parse_shape(elem, device) -> Optional[ShapeInfo]:
+def _mesh_shape(mesh, origin, urdf_dir: str, device) -> ShapeInfo:
+    from ..io import read_triangle_mesh
+
+    fn = mesh.get("filename", "").replace("package://", "")
+    path = fn if os.path.isabs(fn) else os.path.join(urdf_dir, fn)
+    tri = None
+    if os.path.exists(path):
+        try:
+            tri = read_triangle_mesh(path, device=device)
+        except (OSError, ValueError, RuntimeError) as e:
+            console.log_warning("[URDF] failed to load mesh %s: %s", path, e)
+    if tri is not None:
+        scale = mesh.get("scale")
+        if scale:
+            tri.vertices = tri.vertices * torch.tensor(
+                [float(v) for v in scale.split()], dtype=torch.float32,
+                device=tri.vertices.device)
+        tri.transform(origin)
+    return ShapeInfo(None, tri)
+
+
+def _parse_shape(elem, urdf_dir: str, device) -> Optional[ShapeInfo]:
     geom = elem.find("geometry")
     if geom is None:
         return None
@@ -123,10 +148,9 @@ def _parse_shape(elem, device) -> Optional[ShapeInfo]:
         return ShapeInfo(Cylinder(float(cyl.get("radius", 0.0)),
                                   float(cyl.get("length", 0.0)), origin,
                                   device=device))
-    if geom.find("mesh") is not None:
-        raise NotImplementedError(
-            "[URDF] mesh link shapes need the port's mesh readers (io), "
-            "which are not ported yet (ROADMAP Queue 1, item 15)")
+    mesh = geom.find("mesh")
+    if mesh is not None:
+        return _mesh_shape(mesh, origin, urdf_dir, device)
     return None
 
 
@@ -143,17 +167,21 @@ class KinematicChain:
 
     def build_from_urdf(self, filename: str) -> "KinematicChain":
         robot = ET.parse(filename).getroot()
+        # mesh files are relative to the URDF's directory; to the
+        # working directory when the URDF comes as a file object
+        urdf_dir = os.path.dirname(os.path.abspath(filename)) \
+            if isinstance(filename, (str, os.PathLike)) else os.getcwd()
 
         links: Dict[str, Link] = {}
         for le in robot.findall("link"):
             name = le.get("name", "")
             link = Link(name)
             for ce in le.findall("collision"):
-                s = _parse_shape(ce, self.device)
+                s = _parse_shape(ce, urdf_dir, self.device)
                 if s is not None:
                     link.collisions.append(s)
             for ve in le.findall("visual"):
-                s = _parse_shape(ve, self.device)
+                s = _parse_shape(ve, urdf_dir, self.device)
                 if s is not None:
                     link.visuals.append(s)
             links[name] = link

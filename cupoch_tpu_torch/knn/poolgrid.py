@@ -308,7 +308,8 @@ def _cell_key(points, origin, cell_size, dims, n_bins_div, mask=None,
 
 def build_poolgrid_arrays(points, attrs, origin, cell_size,
                           dims: Tuple[int, int, int], cap: int, kc: int,
-                          tile: int, mask=None, active_cells=None):
+                          tile: int, mask=None, active_cells=None,
+                          shards: int = 1):
     """Bin the target once; assemble each (active) cell's 27-run
     neighbourhood into the f32 score table, and keep a compact
     world-frame field table for the epilogue.
@@ -316,6 +317,8 @@ def build_poolgrid_arrays(points, attrs, origin, cell_size,
     Dense grids take the 27 runs as rolls of the [Gx, Gy, Gz, cap]
     binned channels; with `active_cells` ([C_pad] int32, -1 pad) only
     active cells get table rows, gathered from their 27 neighbours.
+    C_pad is a multiple of tile * shards, so the table splits into
+    `shards` equal blocks of whole supertiles (the ring's shards).
     Returns (table [C_pad, kc, 4], binfields [C*cap, F+1], off,
     n_dropped)."""
     Gx, Gy, Gz = dims
@@ -332,7 +335,7 @@ def build_poolgrid_arrays(points, attrs, origin, cell_size,
     if active_cells is None:
         # DENSE: 27-run neighbourhood as rolls (both guard rings are
         # empty, so wrapped neighbours are empty runs)
-        C_pad = _round_up(C, tile)
+        C_pad = _round_up(C, tile * shards)
 
         def runs(arr2d):
             arr = arr2d.reshape(Gx, Gy, Gz, cap)
@@ -342,7 +345,7 @@ def build_poolgrid_arrays(points, attrs, origin, cell_size,
         avalid = None
     else:
         # COMPACT: row gathers of each active cell's 27 neighbour rows
-        C_pad = active_cells.shape[0]          # multiple of tile
+        C_pad = active_cells.shape[0]          # multiple of tile*shards
         avalid = active_cells >= 0
         a = active_cells.clamp(min=0).long()
         az = a % Gz
@@ -405,10 +408,10 @@ def _cell_map_from_active(active_cells, n_cells: int):
 
 def make_poolgrid(points, attrs, origin, cell_size, dims, cap, kc,
                   est: int = EST_NONE, tile: int = 32, mask=None,
-                  active_cells=None) -> PoolGrid:
+                  active_cells=None, shards: int = 1) -> PoolGrid:
     """Build the grid on `points.device`. `active_cells`: optional int
     array of active cell ids from plan_poolgrid (compact surface-cloud
-    grid); padded here to a multiple of `tile` with -1."""
+    grid); padded here to a multiple of `tile * shards` with -1."""
     dev = points.device
     origin = torch.as_tensor(np.asarray(origin, np.float32), device=dev)
     cell_size = torch.as_tensor(np.float32(cell_size), device=dev)
@@ -416,7 +419,8 @@ def make_poolgrid(points, attrs, origin, cell_size, dims, cap, kc,
     act = None
     if active_cells is not None:
         act_np = np.asarray(active_cells, np.int32)
-        ca_pad = _round_up(max(act_np.shape[0], 1), int(tile))
+        ca_pad = _round_up(max(act_np.shape[0], 1),
+                           int(tile) * int(shards))
         act = torch.as_tensor(np.pad(act_np, (0, ca_pad - act_np.shape[0]),
                                      constant_values=-1), device=dev)
         cell_map = _cell_map_from_active(
@@ -424,7 +428,7 @@ def make_poolgrid(points, attrs, origin, cell_size, dims, cap, kc,
     table, binfields, off, n_dropped = build_poolgrid_arrays(
         points, attrs, origin, cell_size, tuple(int(d) for d in dims),
         int(cap), int(kc), int(tile), mask=mask,
-        active_cells=act)
+        active_cells=act, shards=int(shards))
     return PoolGrid(table, binfields, origin, cell_size, off, dims, cap,
                     kc, est, tile, n_dropped=n_dropped, cell_map=cell_map)
 
@@ -436,11 +440,12 @@ def make_poolgrid(points, attrs, origin, cell_size, dims, cap, kc,
 def bin_queries_pool(points, bin_T, origin, cell_size,
                      dims: Tuple[int, int, int], qp: int, tile: int,
                      extra=None, n_extra: int = 0, mask=None,
-                     cell_map=None, n_rank_pad: Optional[int] = None):
+                     cell_map=None, n_rank_pad: Optional[int] = None,
+                     shards: int = 1):
     """Pool queries per supertile of `tile` consecutive z-major cells
     (consecutive ACTIVE cells when `cell_map` is given).
     `n_rank_pad`: padded rank-domain size (the grid's supertile count x
-    tile); defaults to round_up(C, tile) for dense grids.
+    tile); defaults to round_up(C, tile * shards) for dense grids.
 
     Returns (qpool [G, CH, QP] f32 rows (x, y, z, tagf, ccx, ccy, ccz,
     extra..., 0), qidx [G, QP] int32 (-1 empty), n_dropped). Queries
@@ -452,7 +457,7 @@ def bin_queries_pool(points, bin_T, origin, cell_size,
     else:
         if cell_map is not None:
             raise ValueError("compact binning needs n_rank_pad")
-        C_pad = _round_up(C, tile)
+        C_pad = _round_up(C, tile * shards)
     G = C_pad // tile
     bin_T = bin_T.to(points.device, torch.float32)
     Rb = bin_T[:3, :3]
@@ -666,7 +671,13 @@ def _epilogue(grid: PoolGrid, qpool, slot, params, est: int,
     """slot -> original target index -> exact residuals; then either
     the per-query correspondence pair (d2 [G, QP] with inf for none,
     idx [G, QP] int32 with -1) or the reduced GN sums [N_SUMS]. The one
-    gather is against the bin-ordered [C*cap, F+1] field table."""
+    gather is against the bin-ordered [C*cap, F+1] field table.
+
+    `binfields` stays global when `grid.table` is a ring shard
+    (`fused_icp.icp_core_pool_ring`), and a winner's cell is decoded
+    from its query's bin-time cell centre, so the gather does not
+    depend on which shard scored the queries (the JAX package's `tile0`
+    argument, which its epilogue does not read, has no counterpart)."""
     G, CH, QP = qpool.shape
     Gx, Gy, Gz = grid.dims
     cap = grid.cap
@@ -722,6 +733,8 @@ def fused_pool_query(grid: PoolGrid, qpool, params, est: int,
                      corres: bool):
     """One correspondence (+GN reduction) pass over the pooled grid:
     the slot pass, then the epilogue. Returns (d2, idx) [G, QP] when
-    `corres`, else the [N_SUMS] GN sums."""
+    `corres`, else the [N_SUMS] GN sums. `grid` may hold a ring shard
+    of the table with the queries of its supertiles; its `binfields`
+    are global."""
     slot = poolgrid_slot.slot_pass(grid, qpool, params)
     return _epilogue(grid, qpool, slot, params, est, corres)

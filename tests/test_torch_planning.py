@@ -10,6 +10,7 @@ within 1e-6 relative; FK poses within 1e-6; line-set points within
 1e-6.
 """
 import copy
+import io
 
 import numpy as np
 import pytest
@@ -346,12 +347,59 @@ def test_torch_visual_geometry_map_matches_jax(arm_urdf):
 
 
 def test_torch_urdf_mesh_shape_raises(tmp_path):
+    """A mesh file whose read raises (an unknown format), or that is
+    missing, leaves its shape without a mesh and keeps the link, as in
+    the reference (a failed read logs a warning)."""
+    (tmp_path / "a.xyz").write_text("not a mesh")
     p = tmp_path / "mesh.urdf"
     p.write_text('<robot name="r"><link name="a"><visual><geometry>'
-                 '<mesh filename="a.stl"/></geometry></visual></link>'
-                 '</robot>')
-    with pytest.raises(NotImplementedError, match="item 15"):
-        TChain(str(p), device=CPU)
+                 '<mesh filename="package://a.xyz"/></geometry></visual>'
+                 '<collision><geometry><mesh filename="missing.stl"/>'
+                 '</geometry></collision></link></robot>')
+    for chain in (TChain(str(p), device=CPU), JChain(str(p))):
+        link = chain.link_map["a"]
+        assert len(link.visuals) == len(link.collisions) == 1
+        assert link.visuals[0].mesh is None
+        assert link.collisions[0].mesh is None
+    # a URDF given as a file object (as chip_smoke.py's robotics phase
+    # gives it) resolves mesh files against the working directory
+    chain = TChain(device=CPU).build_from_urdf(io.StringIO(p.read_text()))
+    assert chain.link_map["a"].visuals[0].mesh is None
+
+
+def test_torch_urdf_mesh_link_matches_jax(tmp_path):
+    """A link shape given as an STL file next to the URDF (`package://`,
+    a scale and an origin) posed by forward kinematics in both
+    packages."""
+    from cupoch_tpu_torch.geometry import TriangleMesh as TMesh
+    from cupoch_tpu_torch.io import write_triangle_mesh
+
+    box = TMesh.create_box(0.2, 0.1, 0.3, device=CPU)
+    assert write_triangle_mesh(str(tmp_path / "part.stl"), box)
+    urdf = chip_smoke.ARM_URDF.replace(
+        '<link name="forearm_link">',
+        '<link name="forearm_link"><visual><origin xyz="0.1 -0.2 0.05" '
+        'rpy="0.3 -0.1 0.7"/><geometry><mesh filename="package://part.stl"'
+        ' scale="1.5 0.5 2.0"/></geometry></visual>', 1)
+    assert urdf != chip_smoke.ARM_URDF
+    path = tmp_path / "arm_mesh.urdf"
+    path.write_text(urdf)
+    j = JChain(str(path))
+    t = TChain(str(path), device=CPU)
+    shape = t.link_map["forearm_link"].visuals[0]
+    assert shape.primitive is None and shape.mesh is not None
+    assert len(shape.mesh.triangles) == 12
+    q = {"joint_1": 0.4, "joint_2": -0.7}
+    jm = j.get_transformed_visual_geometry_map(j.forward_kinematics(q))
+    tm = t.get_transformed_visual_geometry_map(t.forward_kinematics(q))
+    assert sorted(tm) == sorted(jm)
+    assert len(tm["forearm_link"]) == len(jm["forearm_link"]) >= 1
+    for name in jm:
+        for a, b in zip(tm[name], jm[name]):
+            np.testing.assert_allclose(a.vertices.numpy(),
+                                       np.asarray(b.vertices), atol=1e-5)
+            np.testing.assert_array_equal(a.triangles.numpy(),
+                                          np.asarray(b.triangles))
 
 
 # ---------------------------------------------------------------------------

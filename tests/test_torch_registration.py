@@ -472,16 +472,21 @@ def test_torch_entry_points_need_a_device():
 
 def test_torch_port_imports_no_jax():
     """Every module of the port (also those imported only lazily) and
-    chip_smoke.py import neither jax nor the JAX package."""
+    chip_smoke.py import neither jax nor the JAX package (the ranks that
+    `parallel.launch` spawns: test_torch_sharded.py)."""
     code = ("import importlib, pkgutil, sys; import cupoch_tpu_torch, "
             "chip_smoke; "
             "mods = [m.name for m in pkgutil.walk_packages("
             "cupoch_tpu_torch.__path__, 'cupoch_tpu_torch.')]; "
             "[importlib.import_module(m) for m in mods]; "
-            "assert len(mods) >= 82, mods; "
+            "assert len(mods) >= 92, mods; "
             "assert {'cupoch_tpu_torch.' + p for p in ('camera', "
             "'odometry', 'integration', 'kinfu', 'collision', 'planning', "
-            "'kinematics', 'imageproc', 'io', 'bench')} <= set(mods), mods; "
+            "'kinematics', 'imageproc', 'io', 'bench', 'bench.scaling', "
+            "'parallel', 'parallel.collectives', 'parallel.launch', "
+            "'parallel.sharded', 'slam', 'slam.pose_graph', "
+            "'slam.bundle_adjustment', 'slam.checkpoint', 'slam.slam')} "
+            "<= set(mods), mods; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'cupoch_tpu' "
             "or m.startswith('cupoch_tpu.')]; "

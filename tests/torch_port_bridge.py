@@ -5,8 +5,9 @@ camera intrinsics, features and the FGR option, triangle meshes (bare,
 or with their normals, colours, UVs and texture), voxel and occupancy
 grids, distance transforms, line sets, graphs and laser scan buffers
 (the last five through the port's `from_numpy`), the scalable TSDF
-volume's block table and state, and SGM options.
-A helper of the port's parity tests (tests/test_torch_*.py)."""
+volume's block table and state, SGM options, pose graphs, bundle
+adjustment problems and pooled grids built for a ring of ranks (one
+rank's shard of the score table). A helper of the port's parity tests (tests/test_torch_*.py)."""
 import numpy as np
 
 import cupoch_tpu_torch.registration as treg
@@ -169,3 +170,40 @@ def laser_scan(jbuf, device="cpu"):
         jbuf.bottom_, jbuf.min_angle_, jbuf.max_angle_,
         None if jbuf.intensities is None else np.asarray(jbuf.intensities),
         device=device)
+
+
+def pose_graph(jg):
+    import cupoch_tpu_torch.slam as tslam
+
+    g = tslam.PoseGraph()
+    g.nodes = [tslam.PoseGraphNode(np.array(n.pose)) for n in jg.nodes]
+    g.edges = [tslam.PoseGraphEdge(e.source_node_id, e.target_node_id,
+                                   np.array(e.transformation),
+                                   np.array(e.information), e.uncertain,
+                                   e.confidence) for e in jg.edges]
+    return g
+
+
+def ba_problem(jp):
+    import cupoch_tpu_torch.slam as tslam
+
+    return tslam.BAProblem(*(np.array(a) for a in jp))
+
+
+def pool_grid_shard(jgrid, rank: int, n_shards: int, device="cpu"):
+    """The port's grid of a JAX PoolGrid built with `shards=n_shards`,
+    its score table cut to rank `rank`'s block of supertiles (what that
+    rank of the ring holds before the first rotation)."""
+    from cupoch_tpu_torch.knn.poolgrid import PoolGrid
+
+    g = PoolGrid.from_numpy(
+        np.asarray(jgrid.scan), np.asarray(jgrid.scan_lo),
+        np.asarray(jgrid.binfields), np.asarray(jgrid.origin),
+        np.asarray(jgrid.cell_size), np.asarray(jgrid.off), jgrid.dims,
+        jgrid.cap, jgrid.kc, jgrid.est, jgrid.tile,
+        n_dropped=np.asarray(jgrid.n_dropped),
+        cell_map=None if jgrid.cell_map is None
+        else np.asarray(jgrid.cell_map), device=device)
+    rows = g.table.shape[0] // n_shards
+    g.table = g.table[rank * rows:(rank + 1) * rows].clone()
+    return g

@@ -124,6 +124,19 @@ Phases, each printed on its own line:
        frames in memory; no kernel launches; then the card against the
        CPU on small inputs, and files written from card tensors
        byte-equal to those from CPU tensors;
+     - 4v. visualization and the harness (`vis_phase`): the five
+       colour maps on 1M seeded values on the card, held to the CPU's;
+       a ViewControl fitted on the card to phase 4s's mesh and the 1M
+       headline cloud (held to the host min / max), its pinhole round
+       trip, a 4-key-view trajectory interpolated into its frames, the
+       trajectory and a RenderOption through JSON files; the HTML export
+       of the mesh and the cloud coloured by height from card tensors,
+       its decoded arrays held to the CPU copies bit for bit and the
+       export from CPU copies byte-equal; a PNG render refused without
+       matplotlib; `bench.harness` on its synthetic 120k cloud (the
+       reference's eleven ops; kernel-1 launches from its pooled
+       `registration_icp`), then its CLI on a 50k-point binary PCD with
+       a `torch.profiler` trace that lists kernel 1;
      - 4m. several ranks (`multi_phase`), each sub-step at D = 1 (this
        process), 2 and 4 (`parallel.launch` ranks: NCCL, one a card,
        where the machine has D cards, else gloo ranks sharing the card,
@@ -2359,7 +2372,7 @@ def reconstruct_phase(np, torch, ctt, reset_counts, counts, path_counts,
     and mesh, the mesh operations, SGM on a rendered stereo pair, every
     file format written and read back, the ATE benchmark from files on
     disk; then the card against the CPU on small inputs. No kernel
-    launches."""
+    launches. Returns the volume's mesh after its cleanups."""
     import tempfile
 
     t_phase = time.perf_counter()
@@ -2522,7 +2535,7 @@ def reconstruct_phase(np, torch, ctt, reset_counts, counts, path_counts,
     if any(c.values()):
         raise AssertionError("phase 4s launched a kernel: none of its "
                              "modules calls one")
-    del vol, frames, mesh, smooth, samples, cloud, mem
+    del vol, frames, smooth, samples, cloud, mem
     recon_small(np, torch, ctt, dev)
     marks.append(("small check", time.perf_counter()))
     phase_s = time.perf_counter() - t_phase
@@ -2533,6 +2546,7 @@ def reconstruct_phase(np, torch, ctt, reset_counts, counts, path_counts,
     print(f"phase 4s: {phase_s:.1f} s ({', '.join(parts)})")
     if phase_s > RECON_PHASE_S:
         raise AssertionError(f"phase 4s took {phase_s:.1f} s")
+    return mesh
 
 
 def recon_small(np, torch, ctt, dev):
@@ -2612,6 +2626,318 @@ def recon_small(np, torch, ctt, dev):
             and max(gaps.values()) <= 1e-5):
         raise AssertionError("the card and the CPU differ on phase 4s's "
                              "modules")
+
+
+# ---------------------------------------------------------------------------
+# the visualization and harness phase (4v): colour maps on 1M values, a
+# view fitted to phase 4s's mesh and the headline cloud, a view
+# trajectory, the HTML export of both from card tensors, and the
+# benchmark harness at its own size and through its CLI
+VIS_PHASE_S = 60.0
+VIS_VALUES = 1_000_000
+VIS_MAP_TOL = 1e-6           # card against the CPU, each colour map
+VIEW_TOL = 1e-9              # pinhole round trip, key views of the spline
+HARNESS_REPS = 3
+HARNESS_CLI_POINTS = 50_000
+
+
+def view_checks(np, ctt, geoms, host_pts, root):
+    """ViewControl fitted to `geoms` (on the card) held to the host
+    bounds of `host_pts`, its pinhole round trip, a 4-key-view
+    trajectory interpolated into its frames (each key view a frame), and
+    the trajectory and a RenderOption through JSON files: (frames, ms of
+    the fit, ms of the interpolation)."""
+    vis = ctt.visualization
+    vc = vis.ViewControl()
+    t0 = time.perf_counter()
+    vc.fit_in_geometry(*geoms)
+    fit_ms = (time.perf_counter() - t0) * 1e3
+    if not (np.array_equal(vc.bounding_box_min, host_pts.min(0))
+            and np.array_equal(vc.bounding_box_max, host_pts.max(0))):
+        raise AssertionError("the fitted view's box differs from the host "
+                             "min / max")
+    vc.change_window_size(640, 480)
+    traj = vis.ViewTrajectory()
+    gap = 0.0
+    for step in range(4):
+        vc.rotate(150.0, -40.0 + 30.0 * step)
+        vc.scale(-2.0)
+        p = vc.convert_to_pinhole_camera_parameters()
+        back = vis.ViewControl()
+        back.bounding_box_min = vc.bounding_box_min
+        back.bounding_box_max = vc.bounding_box_max
+        back.change_window_size(640, 480)
+        if not back.convert_from_pinhole_camera_parameters(p):
+            raise AssertionError("the pinhole parameters did not convert "
+                                 "back")
+        gap = max(gap, float(np.abs(
+            back.convert_to_pinhole_camera_parameters().extrinsic
+            - p.extrinsic).max()))
+        traj.view_status.append(vc.convert_to_view_parameters())
+    t0 = time.perf_counter()
+    frames = [traj.get_interpolated_frame(k)[1].convert_to_vector17()
+              for k in range(traj.num_of_frames())]
+    interp_ms = (time.perf_counter() - t0) * 1e3
+    knot = max(float(np.abs(frames[k * (traj.interval + 1)]
+                            - s.convert_to_vector17()).max())
+               for k, s in enumerate(traj.view_status))
+    path = os.path.join(root, "trajectory.json")
+    vis.write_view_trajectory(path, traj)
+    opt = vis.RenderOption()
+    opt.point_size, opt.background_color = 2.0, np.float32([0.1, 0.1, 0.1])
+    ropt = os.path.join(root, "render_option.json")
+    ctt.io.write_ijson_convertible_to_json(ropt, opt)
+    same_json = (vis.read_view_trajectory(path).to_json_dict()
+                 == traj.to_json_dict()
+                 and ctt.io.read_ijson_convertible_from_json(
+                     ropt, vis.RenderOption).to_dict() == opt.to_dict())
+    print(f"path: ViewControl fitted on the card to the mesh and the cloud "
+          f"in {fit_ms:.2f} ms (box {np.round(vc.bounding_box_min, 4)} .. "
+          f"{np.round(vc.bounding_box_max, 4)}, equal to the host min / "
+          f"max); pinhole round trip max gap {gap:.3e}; {len(frames)} "
+          f"frames of a 4-view trajectory in {interp_ms:.2f} ms, key views "
+          f"within {knot:.3e}; trajectory and RenderOption JSON round "
+          f"trips equal: {same_json}")
+    if gap > VIEW_TOL or knot > VIEW_TOL or not same_json:
+        raise AssertionError("a view, the trajectory or a JSON round trip "
+                             "missed its limit")
+    return frames, fit_ms, interp_ms
+
+
+def html_checks(np, torch, ctt, mesh, cloud, root):
+    """The HTML export of `mesh` and `cloud` from card tensors, its
+    decoded arrays held to the geometries' CPU copies, and the same
+    export from CPU copies byte-equal: (ms, MB)."""
+    import base64
+    import re
+
+    vis = ctt.visualization
+    card_path = os.path.join(root, "scene_card.html")
+    cpu_path = os.path.join(root, "scene_cpu.html")
+    _, ms = _sync_ms(torch, lambda: vis.export_html_viewer(
+        [mesh, cloud], card_path), mesh.vertices.device)
+    mesh_c, cloud_c = ctt.geometry.TriangleMesh(
+        mesh.vertices.cpu(), mesh.triangles.cpu(), device="cpu"), \
+        cloud.to("cpu")
+    if mesh.has_vertex_colors():
+        mesh_c.vertex_colors = mesh.vertex_colors.cpu()
+    vis.export_html_viewer([mesh_c, cloud_c], cpu_path)
+    with open(card_path, "rb") as f:
+        html = f.read()
+    with open(cpu_path, "rb") as f:
+        byte_equal = f.read() == html
+    scene = json.loads(re.search(rb"const SCENE = (\{.*?\});\n", html,
+                                 re.S).group(1))
+
+    def dec(g, k, dt):
+        return np.frombuffer(base64.b64decode(g[k]), dt)
+
+    gm, gc = scene["geoms"]
+    tris = mesh_c.triangles.numpy()
+    edges = np.concatenate([tris[:, [0, 1]], tris[:, [1, 2]],
+                            tris[:, [2, 0]]]).astype(np.uint32).reshape(-1)
+    checks = {
+        "mesh points": np.array_equal(dec(gm, "points", np.uint32),
+                                      mesh_c.vertices.numpy().view(
+                                          np.uint32).reshape(-1)),
+        "mesh edges": np.array_equal(dec(gm, "lines", np.uint32), edges),
+        "cloud points": np.array_equal(dec(gc, "points", np.uint32),
+                                       cloud_c.points.numpy().view(
+                                           np.uint32).reshape(-1)),
+        "cloud colours": np.array_equal(
+            dec(gc, "colors", np.uint32),
+            np.clip(cloud_c.colors.numpy(), 0, 1).view(np.uint32)
+            .reshape(-1)),
+        "css": b"height:100%;" in html and b"100%%" not in html,
+        "byte-equal to the CPU export": byte_equal,
+    }
+    if mesh.has_vertex_colors():
+        checks["mesh colours"] = np.array_equal(
+            dec(gm, "colors", np.uint32),
+            np.clip(mesh_c.vertex_colors.numpy(), 0, 1).view(np.uint32)
+            .reshape(-1))
+    mb = len(html) / 1e6
+    print(f"path: export_html_viewer of the mesh ({len(mesh_c.vertices)} "
+          f"vertices, {tris.shape[0]} triangles) and the cloud "
+          f"({len(cloud_c)} points coloured by height) from card tensors: "
+          f"{ms:.1f} ms, {mb:.2f} MB written; "
+          + ", ".join(f"{k} {v}" for k, v in checks.items()))
+    if not all(checks.values()):
+        raise AssertionError("the HTML export's arrays differ from the "
+                             "geometries'")
+    return ms, mb
+
+
+def no_render_check(ctt, cloud, root):
+    """A PNG render with matplotlib unimportable raises the RuntimeError
+    that names it (the card's machine has no matplotlib); returns
+    whether matplotlib is installed."""
+    import importlib.util
+    import sys
+
+    installed = importlib.util.find_spec("matplotlib") is not None
+    saved = sys.modules.get("matplotlib")
+    sys.modules["matplotlib"] = None
+    try:
+        ctt.visualization.draw_geometries(
+            [cloud], filename=os.path.join(root, "x.png"))
+    except RuntimeError as e:
+        if "matplotlib" not in str(e):
+            raise
+        print(f"path: draw_geometries to a PNG without matplotlib (installed "
+              f"here: {installed}) raised: {e}")
+    else:
+        raise AssertionError("a PNG render without matplotlib did not raise")
+    finally:
+        if saved is None:
+            del sys.modules["matplotlib"]
+        else:
+            sys.modules["matplotlib"] = saved
+    return installed
+
+
+def harness_timed(torch, ctt, reset_counts, counts, card):
+    """The benchmark harness on its synthetic 120k cloud at HARNESS_REPS,
+    its launches counted: ({op: ms}, launches)."""
+    import contextlib
+    import io
+
+    torch.cuda.synchronize()
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        results = ctt.bench.harness.main(["--reps", str(HARNESS_REPS)])
+    torch.cuda.synchronize()
+    launches = counts()
+    ms = {r.name: r.seconds * 1e3 for r in results}
+    print(f"path: bench.harness on its synthetic 120k cloud, reps "
+          f"{HARNESS_REPS} (the least of them), launches {launches}: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items())
+          + f" on {card}")
+    if tuple(ms) != ctt.bench.harness.OPS or not all(v > 0 for v in ms.values()):
+        raise AssertionError(f"the harness's ops {tuple(ms)} or times are "
+                             f"not the reference's")
+    if launches["slot"] < 1:
+        raise AssertionError("the harness's registration_icp did not take "
+                             "the pooled grid (no kernel-1 launch)")
+    return ms, launches
+
+
+def harness_cli(np, ctt, root):
+    """`python -m cupoch_tpu_torch.bench --pcd ... --reps 1 --trace ...`
+    through `harness.main` on a HARNESS_CLI_POINTS-point binary PCD: the
+    ops as the reference's, and kernel 1 among the trace's kernels:
+    ({op: ms}, trace MB)."""
+    import contextlib
+    import io
+
+    harness = ctt.bench.harness
+    rng = np.random.default_rng(3)
+    pcd = ctt.geometry.PointCloud(rng.uniform(size=(
+        HARNESS_CLI_POINTS, 3)).astype(np.float32), device="cuda")
+    path = os.path.join(root, "cli.pcd")
+    ctt.io.write_point_cloud(path, pcd)
+    trace = os.path.join(root, "trace")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        cli = harness.main(["--pcd", path, "--reps", "1", "--trace", trace])
+    cli_s = time.perf_counter() - t0
+    last = json.loads(out.getvalue().strip().splitlines()[-1])
+    trace_file = os.path.join(trace, harness.TRACE_FILE)
+    t0 = time.perf_counter()
+    with open(trace_file) as f:
+        events = json.load(f)["traceEvents"]
+    read_s = time.perf_counter() - t0
+    kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    slot = any("slot_kernel" in k for k in kernels)
+    mb = os.path.getsize(trace_file) / 1e6
+    cli_ms = {r.name: r.seconds * 1e3 for r in cli}
+    print(f"path: python -m cupoch_tpu_torch.bench --pcd (a {len(pcd)}-point "
+          f"binary PCD) --reps 1 --trace: {cli_s:.1f} s with the trace; "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in cli_ms.items())
+          + f"; trace {mb:.1f} MB, {len(events)} events, {len(kernels)} "
+          f"kernel names, kernel 1 (slot_kernel) among them: {slot}; read "
+          f"in {read_s:.1f} s")
+    if tuple(d["name"] for d in last) != harness.OPS or not slot:
+        raise AssertionError("the harness's CLI run or its trace missed "
+                             "its checks")
+    return cli_ms, mb
+
+
+def vis_phase(np, torch, ctt, reset_counts, counts, path_counts, card, mesh):
+    """Phase 4v: colour maps on VIS_VALUES values on the card against the
+    CPU; a view fitted on the card to phase 4s's `mesh` and the 1M-point
+    headline cloud, its pinhole round trip, a view trajectory and the
+    JSON files; the HTML export of both from card tensors against their
+    CPU copies; a PNG render refused without matplotlib; the utility
+    surface; the benchmark harness at its own size (launches counted in
+    path_counts["4v"]) and through its CLI with a trace."""
+    import contextlib
+    import io
+
+    t_phase = time.perf_counter()
+    marks = []
+    vis = ctt.visualization
+    dev = "cuda"
+    if not ctt.utility.is_cuda_available():
+        raise AssertionError("utility.is_cuda_available() is False")
+    values = np.random.default_rng(9).uniform(
+        -0.2, 1.2, VIS_VALUES).astype(np.float32)
+    values_d = torch.as_tensor(values, device=dev)
+    map_ms, gaps = {}, {}
+    for opt in vis.ColorMapOption:
+        vis.get_color_map_color(values_d, opt)
+        got, map_ms[opt.name] = _sync_ms(
+            torch, lambda: vis.get_color_map_color(values_d, opt))
+        if got.device.type != "cuda" or got.dtype != torch.float32 \
+                or tuple(got.shape) != (VIS_VALUES, 3):
+            raise AssertionError(f"colour map {opt.name}: {got.device} "
+                                 f"{got.dtype} {tuple(got.shape)}")
+        gaps[opt.name] = float(np.abs(
+            got.cpu().numpy()
+            - vis.get_color_map_color(values, opt, device="cpu").numpy())
+            .max())
+    print(f"path: colour maps on {VIS_VALUES} values in [-0.2, 1.2] on the "
+          f"card: " + ", ".join(f"{k} {map_ms[k]:.3f} ms (gap to the CPU "
+                                f"{gaps[k]:.1e})" for k in map_ms)
+          + f" on {card}")
+    if max(gaps.values()) > VIS_MAP_TOL:
+        raise AssertionError("a colour map on the card differs from the "
+                             "CPU's")
+    marks.append(("colour maps", time.perf_counter()))
+
+    tgt, _, _, _ = _headline_clouds(np, N_POINTS)
+    cloud = ctt.geometry.PointCloud(tgt, device=dev)
+    z = cloud.points[:, 2]
+    cloud.colors = vis.get_color_map_color((z - z.min()) / (z.max() - z.min()))
+    host = np.concatenate([mesh.vertices.cpu().numpy(), tgt])
+    with tempfile.TemporaryDirectory() as root:
+        view_checks(np, ctt, (mesh, cloud), host, root)
+        marks.append(("views", time.perf_counter()))
+        html_checks(np, torch, ctt, mesh, cloud, root)
+        marks.append(("html", time.perf_counter()))
+        no_render_check(ctt, cloud, root)
+        bar_out = io.StringIO()
+        with contextlib.redirect_stderr(bar_out):
+            bar = ctt.utility.ConsoleProgressBar(4, "phase 4v")
+            for _ in range(4):
+                bar += 1
+        if not bar_out.getvalue().endswith("] 100.0%\n"):
+            raise AssertionError("ConsoleProgressBar wrote no full bar")
+        marks.append(("no render", time.perf_counter()))
+        del cloud, values_d
+        _, path_counts["4v"] = harness_timed(torch, ctt, reset_counts,
+                                             counts, card)
+        marks.append(("harness", time.perf_counter()))
+        harness_cli(np, ctt, root)
+        marks.append(("harness CLI", time.perf_counter()))
+    phase_s = time.perf_counter() - t_phase
+    parts, last_t = [], t_phase
+    for name, t in marks:
+        parts.append(f"{name} {t - last_t:.1f}")
+        last_t = t
+    print(f"phase 4v: {phase_s:.1f} s ({', '.join(parts)})")
+    if phase_s > VIS_PHASE_S:
+        raise AssertionError(f"phase 4v took {phase_s:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -4452,6 +4778,20 @@ def check_nn_reduce(torch, rollgrid_nn, nvcc, q_soa, grid, radius, mode,
             "valid_queries": n_valid, "busy_cells": busy}
 
 
+def grid_cache_report(rungrid, phase):
+    """Print what the k-NN grid cache (`knn_search_grid`) did in `phase`
+    in this process, then start the next phase's count."""
+    st = rungrid.grid_cache_stats
+    print(f"grid cache, {phase}: {st['hits']} hits (the oldest with "
+          f"{st['oldest_hit']} grids stored after it), {st['stored']} grids "
+          f"stored, {st['evicted']} evicted, {st['refused']} refused (over "
+          f"the budget alone), at most {st['max_grids']} grids "
+          f"and {st['max_bytes'] / 2**20:.1f} MiB held, the largest grid "
+          f"{st['max_grid_bytes'] / 2**20:.1f} MiB (budget "
+          f"{rungrid._GRID_CACHE_BYTES / 2**20:.0f} MiB)")
+    rungrid.reset_grid_cache_stats()
+
+
 def main():
     import numpy as np
     import torch
@@ -4768,20 +5108,30 @@ def main():
     small_inputs(np, ctt, poolgrid, rungrid, tgt, tn, src, T_true, crit,
                  pt2pl)
     del tgt, tn, src, ftgt, ftn, fsrc, sheet, sheet_n, sheet_src
+    grid_cache_report(rungrid, "phases 3-4")
     # 4g. global registration
     global_registration(np, torch, ctt, reset_counts, counts, path_counts,
                         card)
+    grid_cache_report(rungrid, "phase 4g")
     # 4k. RGB-D odometry and KinectFusion
     rgbd_phase(np, torch, ctt, reset_counts, counts, path_counts, card)
+    grid_cache_report(rungrid, "phase 4k")
     # 4r. occupancy mapping, distance field, planning and collisions
     robotics_phase(np, torch, ctt, reset_counts, counts, path_counts, card)
+    grid_cache_report(rungrid, "phase 4r")
     # 4s. scalable volume, mesh operations, stereo, files and the ATE
-    reconstruct_phase(np, torch, ctt, reset_counts, counts, path_counts,
-                      card)
+    mesh = reconstruct_phase(np, torch, ctt, reset_counts, counts,
+                             path_counts, card)
+    grid_cache_report(rungrid, "phase 4s")
+    # 4v. colour maps, views, the HTML export and the benchmark harness
+    vis_phase(np, torch, ctt, reset_counts, counts, path_counts, card, mesh)
+    grid_cache_report(rungrid, "phase 4v")
+    del mesh
     # 4m. the sharded ICP loops, the SLAM backend and the scaling bench
     # over 1, 2 and 4 ranks
     multi_phase(np, torch, ctt, reset_counts, counts, path_counts, card,
                 refs=(res, fres))
+    grid_cache_report(rungrid, "phase 4m, this process's ranks")
 
     # 5. per-kernel numbers, then the result
     print(json.dumps({"path_launches": path_counts,

@@ -28,10 +28,12 @@ from . import (  # noqa: E402
     registration,
     slam,
     utility,
+    visualization,
 )
 # the geometry's to_*_dlpack / from_*_dlpack methods
 from .utility import dl_converter  # noqa: E402,F401
 
 __all__ = ["bench", "camera", "collision", "geometry", "imageproc",
            "integration", "io", "kinematics", "kinfu", "knn", "odometry",
-           "parallel", "planning", "registration", "slam", "utility"]
+           "parallel", "planning", "registration", "slam", "utility",
+           "visualization"]

@@ -11,6 +11,8 @@ from ..utility.device import resolve_device
 from .boundingvolume import AxisAlignedBoundingBox
 from .geometry import Geometry, GeometryType, as_f32
 
+DEFAULT_LINE_COLOR = np.ones(3, np.float32)  # cupoch lineset.h:46
+
 
 def as_i32(x, device, width: int) -> torch.Tensor:
     """Coerce to int32 [N, width] on `device`."""

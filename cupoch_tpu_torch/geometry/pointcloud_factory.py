@@ -218,3 +218,7 @@ def create_from_occupancygrid(occgrid):
 
     idx, _, _ = occgrid.extract_occupied_voxels()
     return PointCloud(occgrid.voxel_centers(idx), device=occgrid.device)
+
+
+# the JAX package's name of the same factory
+create_from_occupancy_grid = create_from_occupancygrid

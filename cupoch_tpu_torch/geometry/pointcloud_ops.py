@@ -300,6 +300,21 @@ def score_planes(points: torch.Tensor, triples: torch.Tensor,
     return torch.cat([n[best], d[best][None]]), inl[:, best]
 
 
+def segment_plane(points: torch.Tensor, mask: Optional[torch.Tensor],
+                  distance_threshold, num_iterations: int, seed: int = 0
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RANSAC with every hypothesis scored at once (the JAX package's
+    `segment_plane`): `num_iterations` triples of distinct points among
+    the rows `mask` keeps, drawn as `plane_triples` draws them from
+    `seed` (the JAX package draws from a `jax.random` key). Returns
+    (plane [4]: n.x + d = 0, inlier mask [N])."""
+    mask = _all(points, mask)
+    rows = torch.nonzero(mask).reshape(-1)
+    triples = rows[plane_triples(int(rows.numel()), num_iterations,
+                                 seed).to(rows.device)]
+    return score_planes(points, triples, distance_threshold, mask)
+
+
 # ---------------------------------------------------------------------------
 # DBSCAN (cupoch pointcloud_cluster.cu, G-DBSCAN)
 # ---------------------------------------------------------------------------

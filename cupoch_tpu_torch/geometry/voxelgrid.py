@@ -22,6 +22,10 @@ from .geometry import Geometry3D, GeometryType, as_f32
 from .image_ops import _f32, float_value_at
 from .intersection_test import triangle_aabb
 
+# the key of no voxel (the JAX package marks dropped keys with it; the
+# port drops them by mask and keeps the name)
+INVALID_VOXEL_INDEX = np.iinfo(np.int32).min
+
 # element budget of one [voxels, triangles] tile of the mesh voxelizer
 _MESH_TILE_ELEMS = 1 << 22
 

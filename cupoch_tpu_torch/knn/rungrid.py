@@ -96,6 +96,12 @@ class RunGrid:
     def n_windows(self) -> int:
         return self.kc // WINDOW
 
+    @property
+    def nbytes(self) -> int:
+        """Bytes the grid's tensors hold."""
+        return sum(t.numel() * t.element_size() for t in vars(self).values()
+                   if isinstance(t, torch.Tensor))
+
     @classmethod
     def from_numpy(cls, cand, attrp, negidx, bounds, pack_lohi, origin,
                    cell_size, dims, cap, kc, est, device=None) -> "RunGrid":
@@ -629,8 +635,16 @@ def knn_rungrid(grid: RunGrid, queries, k: int, qcap: int, radius,
             scatter_to_source(qb, d2_out, Q, float("inf")))
 
 
-_GRID_CACHE_MAX = 4
+# the bytes the cached grids may hold together; past it the oldest go
+# first (a grid larger than it alone is not kept)
+_GRID_CACHE_BYTES = 1 << 30
 _grid_cache: dict = {}  # content key -> (grid, qcap, cell size)
+# what the cache did since `reset_grid_cache_stats`: reused grids, the
+# most grids stored after a grid that was then reused (a cap of N grids
+# would have kept it if fewer than N), grids stored, evicted and refused
+# (each over the budget alone), the most grids and bytes held at once
+# and the largest grid offered
+grid_cache_stats: dict = {}
 
 
 def _data_key(data_np, data_mask, device) -> tuple:
@@ -648,6 +662,36 @@ def clear_grid_cache():
     _grid_cache.clear()
 
 
+def reset_grid_cache_stats():
+    grid_cache_stats.update(hits=0, oldest_hit=0, stored=0, evicted=0,
+                            refused=0, max_grids=0, max_bytes=0,
+                            max_grid_bytes=0)
+
+
+reset_grid_cache_stats()
+
+
+def _cache_grid(key, entry) -> None:
+    """Keep `entry` under `key` as the newest grid, evicting the oldest
+    while the grids' bytes exceed `_GRID_CACHE_BYTES`; a grid over the
+    budget alone is not kept and evicts nothing."""
+    s = grid_cache_stats
+    nbytes = entry[0].nbytes
+    s["max_grid_bytes"] = max(s["max_grid_bytes"], nbytes)
+    _grid_cache.pop(key, None)
+    if nbytes > _GRID_CACHE_BYTES:
+        s["refused"] += 1
+        return
+    _grid_cache[key] = entry
+    held = sum(e[0].nbytes for e in _grid_cache.values())
+    while held > _GRID_CACHE_BYTES:
+        held -= _grid_cache.pop(next(iter(_grid_cache)))[0].nbytes
+        s["evicted"] += 1
+    s["stored"] += 1
+    s["max_grids"] = max(s["max_grids"], len(_grid_cache))
+    s["max_bytes"] = max(s["max_bytes"], held)
+
+
 def knn_search_grid(queries_np, data_np, k: int,
                     radius: Optional[float] = None, data_mask=None,
                     max_retries: int = 3, queries_dev=None, data_dev=None):
@@ -655,8 +699,8 @@ def knn_search_grid(queries_np, data_np, k: int,
     retry: the cell is sized so about 2k points fall in a ball of its
     radius, every query must find k in-coverage neighbours (or, with a
     `radius`, the cell must cover it), and the grid regrows 1.7x when
-    not. A small content-keyed cache reuses a built grid on the same
-    cloud; its result is accepted only under the same test. Returns
+    not. A content-keyed cache (grids of at most `_GRID_CACHE_BYTES`
+    together) reuses a built grid on the same cloud; its result is accepted only under the same test. Returns
     (idx [Q, k] int32, d2 [Q, k]) on the device of `data_dev` (the CPU
     when not given), or None when no dense grid suits the cloud (the
     caller falls back).
@@ -705,6 +749,10 @@ def knn_search_grid(queries_np, data_np, k: int,
         # the cached qcap was sized for another query set: a query its
         # pools dropped (an all-empty row) forces a fresh build
         if bool((found(idx) >= min(kneed, 1)).all()) and accept(idx, cell):
+            s = grid_cache_stats
+            s["hits"] += 1
+            s["oldest_hit"] = max(s["oldest_hit"], len(_grid_cache) - 1
+                                  - list(_grid_cache).index(key))
             return idx, d2
 
     lo, hi = kept.min(0), kept.max(0)
@@ -727,10 +775,7 @@ def knn_search_grid(queries_np, data_np, k: int,
         idx, d2 = knn_rungrid(grid, q_j, k, plan["qcap"],
                               np.float32(min(r_est, r_cap)))
         if accept(idx, r_est):
-            if len(_grid_cache) >= _GRID_CACHE_MAX:
-                _grid_cache.pop(next(iter(_grid_cache)))
-            _grid_cache[key] = (grid, plan["qcap"],
-                                float(plan["cell_size"]))
+            _cache_grid(key, (grid, plan["qcap"], float(plan["cell_size"])))
             return idx, d2
         r_est *= 1.7
     return None

@@ -5,6 +5,7 @@ from __future__ import annotations
 import enum
 import logging
 import sys
+import time
 
 
 class VerbosityLevel(enum.IntEnum):
@@ -58,3 +59,32 @@ def log_info(msg, *args):
 
 def log_debug(msg, *args):
     logger.debug(msg, *args)
+
+
+class ConsoleProgressBar:
+    """Text progress bar on stderr (cupoch utility/console.h
+    ConsoleProgressBar): redrawn at most every 0.1 s and at the end."""
+
+    def __init__(self, expected_count: int, progress_info: str = "",
+                 active: bool = True):
+        self.expected = max(int(expected_count), 1)
+        self.info = progress_info
+        self.active = active
+        self.count = 0
+        self._last = 0.0
+
+    def step(self, n: int = 1):
+        self.count += n
+        now = time.time()
+        if self.active and (now - self._last > 0.1
+                            or self.count >= self.expected):
+            frac = min(self.count / self.expected, 1.0)
+            bar = "=" * int(frac * 40)
+            sys.stderr.write(f"\r{self.info} [{bar:<40}] {frac*100:5.1f}%")
+            if self.count >= self.expected:
+                sys.stderr.write("\n")
+            sys.stderr.flush()
+            self._last = now
+        return self
+
+    __iadd__ = step

@@ -18,6 +18,15 @@ from cupoch_tpu_torch.knn import gridhash as tgh
 from cupoch_tpu_torch.knn import rungrid as trg
 
 N_BIG = 25000   # above the 20k brute-force limit
+N_CACHE = 6000  # a cloud of the grid-cache tests
+
+
+@pytest.fixture
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _cloud(rng, n):
@@ -99,6 +108,66 @@ def test_torch_knn_search_grid_cache_sees_edits(rng):
     trg.clear_grid_cache()
     fresh = trg.knn_search_grid(q, edited, 8)
     assert torch.equal(idx, fresh[0]) and torch.equal(d2, fresh[1])
+
+
+def test_torch_knn_grid_cache_evicts_by_bytes(rng, monkeypatch, one_thread):
+    """Under a byte budget that holds one grid, two large grids evict
+    each other (the oldest goes first), a repeated search on the kept
+    cloud reuses its grid, and every result equals an uncached search."""
+    a, b = _cloud(rng, N_CACHE), _cloud(rng, N_CACHE)
+    q = _cloud(rng, 1000)
+    trg.clear_grid_cache()
+    want = {}
+    for name, data in (("a", a), ("b", b)):
+        want[name] = trg.knn_search_grid(q, data, 8)
+        trg.clear_grid_cache()
+    trg.knn_search_grid(q, a, 8)
+    (grid_a, _, _), = trg._grid_cache.values()
+    monkeypatch.setattr(trg, "_GRID_CACHE_BYTES", grid_a.nbytes * 3 // 2)
+    trg.reset_grid_cache_stats()
+    kept = [grid_a]
+    for name, data in (("b", b), ("a", a), ("a", a), ("b", b)):
+        idx, d2 = trg.knn_search_grid(q, data, 8)
+        assert torch.equal(idx, want[name][0])
+        assert torch.equal(d2, want[name][1])
+        assert len(trg._grid_cache) == 1
+        (grid, _, _), = trg._grid_cache.values()
+        assert grid.nbytes <= trg._GRID_CACHE_BYTES < 2 * grid.nbytes
+        kept.append(grid)
+    # each new cloud's grid evicted the other's; the repeat was a hit
+    assert kept[1] is not kept[0] and kept[2] is not kept[1]
+    assert kept[3] is kept[2] and kept[4] is not kept[3]
+    stats = dict(trg.grid_cache_stats)
+    # a grid over the budget alone is not kept and evicts nothing
+    monkeypatch.setattr(trg, "_GRID_CACHE_BYTES", grid_a.nbytes // 2)
+    idx, d2 = trg.knn_search_grid(q, a, 8)
+    assert torch.equal(idx, want["a"][0]) and torch.equal(d2, want["a"][1])
+    assert list(trg._grid_cache.values())[0][0] is kept[4]
+    assert trg.grid_cache_stats["refused"] == 1
+    assert stats == {"hits": 1, "oldest_hit": 0, "stored": 3,
+                     "evicted": 3, "refused": 0, "max_grids": 1,
+                     "max_bytes": stats["max_grid_bytes"],
+                     "max_grid_bytes": max(g.nbytes for g in kept)}
+    trg.clear_grid_cache()
+
+
+def test_torch_knn_grid_cache_has_no_count_cap(rng, one_thread):
+    """Within the byte budget the cache keeps every grid, more than the
+    JAX package's four, and each cloud's repeat search is a hit."""
+    clouds = [_cloud(rng, N_CACHE) for _ in range(6)]
+    q = _cloud(rng, 500)
+    trg.clear_grid_cache()
+    trg.reset_grid_cache_stats()
+    first = [trg.knn_search_grid(q, c, 8) for c in clouds]
+    assert len(trg._grid_cache) == 6
+    for c, (idx, d2) in zip(clouds, first):
+        again = trg.knn_search_grid(q, c, 8)
+        assert torch.equal(idx, again[0]) and torch.equal(d2, again[1])
+    s = trg.grid_cache_stats
+    assert (s["hits"], s["oldest_hit"], s["stored"], s["evicted"],
+            s["max_grids"]) == (6, 5, 6, 0, 6)
+    assert s["max_bytes"] <= trg._GRID_CACHE_BYTES
+    trg.clear_grid_cache()
 
 
 def test_torch_gridhash_matches_jax(rng):

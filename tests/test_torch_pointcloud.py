@@ -360,6 +360,36 @@ def test_torch_segment_plane_own_draws():
         tops.plane_triples(2, 10)
 
 
+def test_torch_module_segment_plane_with_a_mask_matches_jax(rng):
+    """`pointcloud_ops.segment_plane(points, mask, ...)`, the JAX
+    function's form, draws its triples among the rows the mask keeps:
+    on a plane with noise, where the masked-out rows form a denser
+    second plane, both packages find the kept plane (their draws
+    differ: normals within 0.02 of each other, 2 mm of noise over a
+    unit square) and no masked-out row is an inlier."""
+    plane_pts = np.concatenate(
+        [rng.uniform(size=(300, 2)), rng.normal(size=(300, 1)) * 0.002],
+        1).astype(np.float32)
+    decoy = np.concatenate(
+        [rng.uniform(size=(500, 1)) * 0.2 + 0.5, rng.uniform(size=(500, 2))],
+        1).astype(np.float32)
+    noise = rng.uniform(size=(60, 3)).astype(np.float32) + [0, 0, 0.3]
+    pts = np.concatenate([plane_pts, decoy, noise])
+    mask = np.ones(len(pts), bool)
+    mask[300:800] = False
+    plane_j, inl_j = jops.segment_plane(jnp.asarray(pts), jnp.asarray(mask),
+                                        0.01, 64, jax.random.PRNGKey(0))
+    plane_t, inl_t = tops.segment_plane(torch.as_tensor(pts),
+                                        torch.as_tensor(mask), 0.01, 64,
+                                        seed=0)
+    for plane, inl in ((np.asarray(plane_j), np.asarray(inl_j)),
+                       (plane_t.numpy(), inl_t.numpy())):
+        assert abs(plane[2]) > 0.999 and abs(plane[3]) < 0.01
+        assert not inl[~mask].any() and inl[:300].sum() >= 295
+    np.testing.assert_allclose(np.abs(plane_t.numpy()[:3]),
+                               np.abs(np.asarray(plane_j)[:3]), atol=0.02)
+
+
 @pytest.mark.parametrize("eps,min_points", [(0.3, 5), (0.15, 10), (0.05, 3)])
 def test_torch_cluster_dbscan_matches_jax(rng, eps, min_points):
     """Densified labels equal, noise -1 included."""

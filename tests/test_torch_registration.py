@@ -41,6 +41,7 @@ from cupoch_tpu_torch.registration.estimation import (
 )
 from cupoch_tpu_torch.utility import eigen as teigen
 from cupoch_tpu_torch.utility import transforms as ttf
+from cupoch_tpu_torch.visualization import color_map as tcolor_map
 from cupoch_tpu.utility import eigen as jeigen
 from cupoch_tpu.utility import transforms as jtf
 
@@ -464,6 +465,10 @@ def test_torch_entry_points_need_a_device():
         pytest.skip("a card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TPointCloud(np.zeros((4, 3), np.float32))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tcolor_map.get_color_map_color(np.zeros(4, np.float32))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tcolor_map.color_map_hot([0.5])
 
 
 # ---------------------------------------------------------------------------
@@ -473,23 +478,27 @@ def test_torch_entry_points_need_a_device():
 def test_torch_port_imports_no_jax():
     """Every module of the port (also those imported only lazily) and
     chip_smoke.py import neither jax nor the JAX package (the ranks that
-    `parallel.launch` spawns: test_torch_sharded.py)."""
+    `parallel.launch` spawns: test_torch_sharded.py), nor matplotlib,
+    which only a render imports."""
     code = ("import importlib, pkgutil, sys; import cupoch_tpu_torch, "
             "chip_smoke; "
             "mods = [m.name for m in pkgutil.walk_packages("
             "cupoch_tpu_torch.__path__, 'cupoch_tpu_torch.')]; "
             "[importlib.import_module(m) for m in mods]; "
-            "assert len(mods) >= 92, mods; "
+            "assert len(mods) >= 100, mods; "
             "assert {'cupoch_tpu_torch.' + p for p in ('camera', "
             "'odometry', 'integration', 'kinfu', 'collision', 'planning', "
             "'kinematics', 'imageproc', 'io', 'bench', 'bench.scaling', "
             "'parallel', 'parallel.collectives', 'parallel.launch', "
             "'parallel.sharded', 'slam', 'slam.pose_graph', "
-            "'slam.bundle_adjustment', 'slam.checkpoint', 'slam.slam')} "
+            "'slam.bundle_adjustment', 'slam.checkpoint', 'slam.slam', "
+            "'bench.harness', 'visualization', 'visualization.color_map', "
+            "'visualization.render_option', 'visualization.view_trajectory', "
+            "'visualization.html_viewer', 'visualization.visualizer')} "
             "<= set(mods), mods; "
-            "bad = [m for m in sys.modules if m == 'jax' "
-            "or m.startswith('jax.') or m == 'cupoch_tpu' "
-            "or m.startswith('cupoch_tpu.')]; "
+            "bad = [m for m in sys.modules if m in ('jax', 'cupoch_tpu', "
+            "'matplotlib') or m.startswith(('jax.', 'cupoch_tpu.', "
+            "'matplotlib.'))]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

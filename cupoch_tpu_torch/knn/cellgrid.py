@@ -30,6 +30,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utility import trace
 from ..utility.device import resolve_device
 from .rollgrid import (CAND_FILL, INVALID_INDEX, LANE_BYTES, OFFSETS,
                        LaneRanked, _bin_by_key, _bin_query_soa, _cell_keys,
@@ -72,6 +73,7 @@ class CellGrid(LaneRanked):
                    t(cell_size, np.float32), dims, cap, n_active)
 
 
+@trace.planner("cell")
 def plan_cellgrid(points: np.ndarray, radius: float,
                   max_cells: int = 64_000_000, cap_limit: int = 128,
                   cap_percentile: float = 99.5,

@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utility import trace
 from ..utility.shape import INVALID_INDEX
 from .rollgrid import OFFSETS
 
@@ -46,7 +47,8 @@ class HashGrid:
         self.cell_size = cell_size
         self.table_size = int(table_size)
         self.bucket_cap = int(bucket_cap)
-        fullest = int(bucket_count.max()) if bucket_count.numel() else 0
+        fullest = int(trace.to_host(bucket_count.max())) \
+            if bucket_count.numel() else 0
         self.width = max(1, min(self.bucket_cap, fullest))
 
 

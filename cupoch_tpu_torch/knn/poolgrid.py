@@ -30,6 +30,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utility import trace
 from ..utility.device import resolve_device
 from . import poolgrid_slot
 from .rungrid import (
@@ -141,6 +142,7 @@ class PoolGrid:
 # host-side plan (numpy; identical to the JAX package's plan)
 # ---------------------------------------------------------------------------
 
+@trace.planner("pool")
 def plan_poolgrid(points: np.ndarray, radius: float,
                   margin: float = 0.375,
                   query_points: Optional[np.ndarray] = None,

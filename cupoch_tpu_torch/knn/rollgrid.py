@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utility import trace
 from ..utility.device import resolve_device
 from . import rollgrid_nn
 from .rungrid import _bin_to_slots, _round_up, scatter_to_source
@@ -91,6 +92,7 @@ class RollGrid(LaneRanked):
                    cap)
 
 
+@trace.planner("roll")
 def plan_rollgrid(points: np.ndarray, radius: float,
                   max_cells: int = 2_000_000, cap_limit: int = 128,
                   cap_percentile: float = 99.5,

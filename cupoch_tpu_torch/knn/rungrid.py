@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utility import trace
 from ..utility.device import resolve_device
 
 INVALID_INDEX = -1
@@ -126,6 +127,7 @@ def padded_cells(dims) -> int:
 # host-side plan (numpy; identical to the JAX package's plan)
 # ---------------------------------------------------------------------------
 
+@trace.planner("run")
 def plan_rungrid(points: np.ndarray, radius: float,
                  margin: float = 0.25,
                  query_points: Optional[np.ndarray] = None,

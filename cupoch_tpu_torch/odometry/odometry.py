@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from ..geometry.image import FilterType, RGBDImage
-from ..utility import console
+from ..utility import console, trace
 from ..utility.transforms import log_se3
 from . import odometry_core as core
 
@@ -157,6 +157,14 @@ def compute_rgbd_odometry(
     """The 4x4 motion from the source to the target RGB-D frame, on the
     images' device (cupoch ComputeRGBDOdometry). Returns (is_success,
     4x4 transformation, 6x6 information matrix) as host arrays."""
+    with trace.span("odometry.rgbd"):
+        return _rgbd_odometry(rgbd_source, rgbd_target,
+                              pinhole_camera_intrinsic, odo_init, jacobian,
+                              option)
+
+
+def _rgbd_odometry(rgbd_source, rgbd_target, pinhole_camera_intrinsic,
+                   odo_init, jacobian, option):
     option = option or OdometryOption()
     if (rgbd_source.color.width != rgbd_target.color.width or
             rgbd_source.color.height != rgbd_target.color.height):
@@ -164,21 +172,24 @@ def compute_rgbd_odometry(
             "[RGBDOdometry] Two RGBD pairs should be same in size.")
         return False, np.eye(4, dtype=np.float32), \
             np.zeros((6, 6), np.float32)
-    pyr, K_p, T = _prepare(rgbd_source, rgbd_target,
-                           pinhole_camera_intrinsic, odo_init, option)
+    with trace.span("odometry.prepare"):
+        pyr, K_p, T = _prepare(rgbd_source, rgbd_target,
+                               pinhole_camera_intrinsic, odo_init, option)
     iters = option.iteration_number_per_pyramid_level
     levels = len(iters)
     for level in range(levels - 1, -1, -1):
-        T, ok = core.level_odometry(
-            *_level_inputs(pyr, K_p, level, T.device), T,
-            option.max_depth_diff, jacobian.jac_type,
-            iters[levels - level - 1])
-        if not bool(ok):                      # the level's one read
+        inputs = _level_inputs(pyr, K_p, level, T.device)
+        n_iter = iters[levels - level - 1]
+        with trace.span("odometry.level", level=level, iterations=n_iter):
+            T, ok = core.level_odometry(*inputs, T, option.max_depth_diff,
+                                        jacobian.jac_type, n_iter)
+        if not bool(trace.to_host(ok)):       # the level's one read
             console.log_warning("[ComputeOdometry] no solution!")
             return False, np.eye(4, dtype=np.float32), \
                 np.zeros((6, 6), np.float32)
-    info = _information(pyr, K_p, T, option)
-    return True, T.cpu().numpy(), info.cpu().numpy()
+    with trace.span("odometry.information"):
+        info = _information(pyr, K_p, T, option)
+    return True, trace.to_host(T).numpy(), trace.to_host(info).numpy()
 
 
 def compute_weighted_rgbd_odometry(

@@ -16,6 +16,7 @@ import torch
 
 from ..geometry import image_ops
 from ..utility import eigen as ueigen
+from ..utility import trace
 from ..utility.transforms import log_se3
 
 # cupoch rgbdodometry_jacobian.inl
@@ -174,14 +175,18 @@ def level_odometry(src_color, src_depth, tgt_color, tgt_depth,
     T = T_init
     solved = torch.ones((), dtype=torch.bool, device=T.device)
     for _ in range(n_iter):
-        u_t, v_t, _, ok = compute_correspondence(
-            src_depth, tgt_depth, K, K_inv, T, max_depth_diff)
-        J0, r0, J1, r1, w = _jacobians(
-            jac_type, src_color, tgt_color, tgt_depth, src_xyz, dx_color,
-            dx_depth, dy_color, dy_depth, K, T, u_t, v_t, ok)
-        JTJ, JTr, _ = _reduce_system(J0, r0, J1, r1, w)
-        solved, delta = ueigen.solve_jacobian_system(JTJ, JTr)
-        T = torch.where(solved, delta @ T, T)
+        with trace.span("odometry.correspondence"):
+            u_t, v_t, _, ok = compute_correspondence(
+                src_depth, tgt_depth, K, K_inv, T, max_depth_diff)
+        with trace.span("odometry.jacobians"):
+            J0, r0, J1, r1, w = _jacobians(
+                jac_type, src_color, tgt_color, tgt_depth, src_xyz, dx_color,
+                dx_depth, dy_color, dy_depth, K, T, u_t, v_t, ok)
+        with trace.span("odometry.reduce"):
+            JTJ, JTr, _ = _reduce_system(J0, r0, J1, r1, w)
+        with trace.span("odometry.solve"):
+            solved, delta = ueigen.solve_jacobian_system(JTJ, JTr)
+            T = torch.where(solved, delta @ T, T)
     return T, solved
 
 

@@ -35,6 +35,9 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as tmp
 
+# the port's counters live in one place; the ranks read them here
+from ..utility.trace import launch_counts, reset_launch_counts
+
 #: a collective that waits longer than this fails the rank (a rank that
 #: took another branch would otherwise hang its peers)
 COLLECTIVE_TIMEOUT_S = 600
@@ -47,23 +50,6 @@ class Job(NamedTuple):
     fn: Callable
     args: tuple = ()
     kwargs: Optional[dict] = None
-
-
-def launch_counts() -> dict:
-    """This process's kernel launches since the counters were set to 0."""
-    from ..knn import poolgrid_slot, rollgrid_nn, rungrid_fused, rungrid_gmm
-    return {"slot": poolgrid_slot.launches,
-            "fused_corres": rungrid_fused.launches["corres"],
-            "fused_gn": rungrid_fused.launches["gn"],
-            "gmm": rungrid_gmm.launches, "nn": rollgrid_nn.launches}
-
-
-def reset_launch_counts() -> None:
-    from ..knn import poolgrid_slot, rollgrid_nn, rungrid_fused, rungrid_gmm
-    poolgrid_slot.launches = 0
-    rungrid_fused.launches.update(corres=0, gn=0)
-    rungrid_gmm.launches = 0
-    rollgrid_nn.launches = 0
 
 
 def loaded_packages(mesh=None) -> List[str]:

@@ -31,6 +31,7 @@ import torch
 
 from ..knn import poolgrid, rungrid, rungrid_fused
 from ..utility import eigen as ueigen
+from ..utility import trace
 from ..utility.transforms import transform_points
 from .estimation import TransformationEstimationType
 from .kabsch import kabsch_solve
@@ -130,7 +131,7 @@ def _n_source(src_mask, mesh):
     n = src_mask.sum().to(torch.float32)
     if mesh is not None:
         n = mesh.psum(n)
-    return n.clamp(min=1.0).to(_HOST)
+    return trace.to_host(n.clamp(min=1.0))
 
 
 def _psum(x, mesh):
@@ -198,7 +199,7 @@ def _pool_loop(src, src_mask, src_aux, grid, init_T, max_dist,
     est = _est_code(est_type)
     n_src = _n_source(src_mask, mesh)
     n_extra = poolgrid.n_query_extra(est)
-    corners = _aabb_corners(src, src_mask, mesh).to(_HOST)
+    corners = trace.to_host(_aabb_corners(src, src_mask, mesh))
     r2 = torch.tensor(max_dist, dtype=torch.float32) ** 2
     margin = float(np.float32(rebin_margin))
     rel_fit = torch.tensor(relative_fitness, dtype=torch.float32)
@@ -222,7 +223,7 @@ def _pool_loop(src, src_mask, src_aux, grid, init_T, max_dist,
             T_bin = T
             nq = torch.maximum(nq, nq2)
         params = poolgrid.make_params(T, r2, grid, *extra_params)
-        sums = _psum(query(qpool, params, False), mesh).to(_HOST)
+        sums = trace.to_host(_psum(query(qpool, params, False), mesh))
         fit2, rmse2 = _stats_from_sums(est_type, sums, n_src)
         converged = bool(((fit - fit2).abs() < rel_fit)
                          & ((rmse - rmse2).abs() < rel_rmse)) and it > 0
@@ -264,7 +265,7 @@ def icp_core_rungrid(src, src_mask, src_normals, grid: rungrid.RunGrid,
     est = _est_code(est_type)
     n_src = _n_source(src_mask, mesh)
     sym = est_type == TransformationEstimationType.SymmetricMethod
-    corners = _aabb_corners(src, src_mask, mesh).to(_HOST)
+    corners = trace.to_host(_aabb_corners(src, src_mask, mesh))
     r2 = torch.tensor(max_dist, dtype=torch.float32) ** 2
     margin = float(np.float32(rebin_margin))
     rel_fit = torch.tensor(relative_fitness, dtype=torch.float32)
@@ -287,8 +288,8 @@ def icp_core_rungrid(src, src_mask, src_normals, grid: rungrid.RunGrid,
             qsoa, qidx = rebin(T)
             T_bin = T
         params = rungrid.make_params(T, r2, grid)
-        sums = _psum(rungrid_fused.fused_query(grid, qsoa, qidx, params,
-                                               est, False), mesh).to(_HOST)
+        sums = trace.to_host(_psum(rungrid_fused.fused_query(
+            grid, qsoa, qidx, params, est, False), mesh))
         fit2, rmse2 = _stats_from_sums(est_type, sums, n_src)
         converged = bool(((fit - fit2).abs() < rel_fit)
                          & ((rmse - rmse2).abs() < rel_rmse)) and it > 0

@@ -25,7 +25,7 @@ import torch
 
 from ..knn import (bruteforce, cellgrid, gridhash, poolgrid, rollgrid,
                    rungrid, rungrid_fused)
-from ..utility import console
+from ..utility import console, trace
 from ..utility.shape import bucket_size, pad_axis0, valid_mask
 from ..utility.transforms import transform_points
 from . import fused_icp
@@ -84,6 +84,8 @@ _GRID_THRESHOLD = 20000  # below this, brute-force 1-NN is faster than a grid
 _BRUTE_FALLBACK_MAX = 200_000
 _RUN_GRID_ESTIMATORS = (_ET.PointToPoint, _ET.PointToPlane,
                         _ET.SymmetricMethod)
+# the generic loop's `use_grid` as a branch of `registration_icp`
+_BRANCHES = {False: "brute", True: "hash"}
 
 
 def _prep(pcd, need_normals: bool):
@@ -98,11 +100,16 @@ def _prep(pcd, need_normals: bool):
     return pts, mask, normals
 
 
+def _host_float(x) -> float:
+    """A number, or a 0-d tensor read from its device."""
+    return float(trace.to_host(x)) if torch.is_tensor(x) else float(x)
+
+
 def _make_result(T, idx, fit, rmse, n_src):
-    res = RegistrationResult(T.cpu().numpy())
-    res.fitness = float(fit)
-    res.inlier_rmse = float(rmse)
-    idx = idx[:n_src].cpu().numpy()
+    res = RegistrationResult(trace.to_host(T).numpy())
+    res.fitness = _host_float(fit)
+    res.inlier_rmse = _host_float(rmse)
+    idx = trace.to_host(idx[:n_src]).numpy()
     src_i = np.nonzero(idx >= 0)[0]
     res.correspondence_set = np.stack(
         [src_i, idx[src_i]], -1).astype(np.int32)
@@ -120,7 +127,8 @@ def _correspondence_fn(tgt, tgt_mask, max_dist, use_grid, grid=None):
         return lambda src_t: cellgrid.query_nn_cellgrid(grid, src_t,
                                                         max_dist)
     if use_grid:
-        hgrid = gridhash.build_grid(tgt, max_dist, mask=tgt_mask)
+        with trace.span("registration.build", branch="hash"):
+            hgrid = gridhash.build_grid(tgt, max_dist, mask=tgt_mask)
         return lambda src_t: gridhash.query_nn(hgrid, src_t, max_dist)
     r2 = torch.tensor(max_dist, dtype=torch.float32) ** 2
 
@@ -145,7 +153,6 @@ def _icp_core(src, src_mask, src_normals, tgt, tgt_mask, tgt_normals,
     [4, 4] f32 on the host, idx [Np] int32 on the device, fitness, rmse
     (host 0-d tensors), iterations run)."""
     dev = src.device
-    n_src = src_mask.sum().to(torch.float32).clamp(min=1.0).to(_HOST)
     corres_fn = _correspondence_fn(tgt, tgt_mask, max_dist, use_grid, grid)
     M = tgt.shape[0]
     rel_fit = torch.tensor(relative_fitness, dtype=torch.float32)
@@ -180,28 +187,32 @@ def _icp_core(src, src_mask, src_normals, tgt, tgt_mask, tgt_normals,
         return normal_system(est_type, src_t, tgt[ti], tgt_normals[ti],
                              src_n, w)
 
-    T = torch.as_tensor(init_T, dtype=torch.float32).to(_HOST)
-    src_t, idx, ok, head = eval_state(T)
-    fit = rmse = None
-    it = 0
-    while True:
-        more = it < max_iteration
-        parts = [head, system(T, src_t, idx, ok)] if more else [head]
-        host = torch.cat(parts).to(_HOST)     # the iteration's one read
-        cnt, err = host[0], host[1]
-        fit2 = cnt / n_src
-        rmse2 = torch.where(cnt > 0, torch.sqrt(err / cnt.clamp(min=1.0)),
-                            0.0)
-        if fit is not None and bool(((fit - fit2).abs() < rel_fit)
-                                    & ((rmse - rmse2).abs() < rel_rmse)):
-            fit, rmse = fit2, rmse2
-            break
-        fit, rmse = fit2, rmse2
-        if not more:
-            break
-        T = solve_normal_system(est_type, host[2:]) @ T
-        it += 1
+    with trace.span("registration.loop",
+                    branch=_BRANCHES.get(use_grid, use_grid)):
+        n_src = trace.to_host(
+            src_mask.sum().to(torch.float32).clamp(min=1.0))
+        T = torch.as_tensor(init_T, dtype=torch.float32).to(_HOST)
         src_t, idx, ok, head = eval_state(T)
+        fit = rmse = None
+        it = 0
+        while True:
+            more = it < max_iteration
+            parts = [head, system(T, src_t, idx, ok)] if more else [head]
+            host = trace.to_host(torch.cat(parts))  # the iteration's read
+            cnt, err = host[0], host[1]
+            fit2 = cnt / n_src
+            rmse2 = torch.where(cnt > 0,
+                                torch.sqrt(err / cnt.clamp(min=1.0)), 0.0)
+            if fit is not None and bool(((fit - fit2).abs() < rel_fit)
+                                        & ((rmse - rmse2).abs() < rel_rmse)):
+                fit, rmse = fit2, rmse2
+                break
+            fit, rmse = fit2, rmse2
+            if not more:
+                break
+            T = solve_normal_system(est_type, host[2:]) @ T
+            it += 1
+            src_t, idx, ok, head = eval_state(T)
     return T, idx, fit, rmse, it
 
 
@@ -214,18 +225,20 @@ def _choose_corres(target, tgt_padded, tgt_mask, max_dist):
     n = len(target)
     if n <= _GRID_THRESHOLD:
         return False, None
-    pts_np = target.points.cpu().numpy()
+    pts_np = trace.to_host(target.points).numpy()
     plan = rollgrid.plan_rollgrid(pts_np, max_dist)
     if plan is not None:
-        return "roll", rollgrid.build_rollgrid(
-            tgt_padded, plan["origin"], plan["cell_size"], plan["dims"],
-            plan["cap"], mask=tgt_mask)
+        with trace.span("registration.build", branch="roll"):
+            return "roll", rollgrid.build_rollgrid(
+                tgt_padded, plan["origin"], plan["cell_size"], plan["dims"],
+                plan["cap"], mask=tgt_mask)
     cplan = cellgrid.plan_cellgrid(pts_np, max_dist)
     if cplan is not None:
-        return "cell", cellgrid.build_cellgrid(
-            tgt_padded, cplan["origin"], cplan["cell_size"],
-            cplan["active"], cplan["dims"], cplan["cap"],
-            cplan["n_active"], mask=tgt_mask)
+        with trace.span("registration.build", branch="cell"):
+            return "cell", cellgrid.build_cellgrid(
+                tgt_padded, cplan["origin"], cplan["cell_size"],
+                cplan["active"], cplan["dims"], cplan["cap"],
+                cplan["n_active"], mask=tgt_mask)
     if n <= _BRUTE_FALLBACK_MAX:
         return False, None
     return True, None
@@ -286,6 +299,23 @@ def registration_icp(
     criteria: Optional[ICPConvergenceCriteria] = None,
 ) -> RegistrationResult:
     """Iterative closest point on the device of the two clouds."""
+    with trace.span("registration.icp", source_points=len(source),
+                    target_points=len(target)):
+        return _registration_icp(source, target, max_correspondence_distance,
+                                 init, estimation, criteria)
+
+
+def _traced_result(res: RegistrationResult, branch: str):
+    """`res`, with the branch taken and the iterations run set on the
+    `registration.icp` span and counted."""
+    trace.set_attrs(branch=branch, iterations=res.iterations)
+    trace.count(f"registration.branch.{branch}")
+    trace.count("registration.iterations", res.iterations)
+    return res
+
+
+def _registration_icp(source, target, max_correspondence_distance, init,
+                      estimation, criteria):
     if max_correspondence_distance <= 0.0:
         console.log_error("Invalid max_correspondence_distance.")
     estimation = estimation or TransformationEstimationPointToPoint()
@@ -320,12 +350,12 @@ def registration_icp(
         console.log_debug("ICP finished after %s iterations", it)
         res = _make_result(T, idx, fit, rmse, len(source))
         res.iterations = it
-        return res
+        return _traced_result(res, _BRANCHES.get(use_grid, use_grid))
 
     if n_tgt <= _GRID_THRESHOLD:
         return generic(False, None)
 
-    src_np = source.points.cpu().numpy()
+    src_np = trace.to_host(source.points).numpy()
     initn = init_T.numpy()
     src_np_t = src_np @ initn[:3, :3].T + initn[:3, 3]
     tgt_aux, src_aux, extra_params = None, src_normals, (0.0, 0.0)
@@ -340,7 +370,7 @@ def registration_icp(
         src_aux = fused_icp.cov_upper6(aux["src_cov"])
     attrs, est_code = fused_icp.make_target_attrs(
         est_type, tgt, tgt_normals, tgt_aux)
-    tgt_np = target.points.cpu().numpy()
+    tgt_np = trace.to_host(target.points).numpy()
     pplan = poolgrid.plan_poolgrid(tgt_np, max_dist, query_points=src_np_t,
                                    est=est_code)
     if pplan is not None:
@@ -365,13 +395,14 @@ def _registration_icp_pool(source, src, src_mask, src_aux, tgt, tgt_mask,
     the cell capacity when the planned cap drops too many targets."""
 
     def build(plan):
-        return poolgrid.make_poolgrid(
-            tgt, attrs, plan["origin"], plan["cell_size"], plan["dims"],
-            plan["cap"], plan["kc"], est=est_code, tile=plan["tile"],
-            mask=tgt_mask, active_cells=plan.get("active_cells"))
+        with trace.span("registration.build", branch="pool"):
+            return poolgrid.make_poolgrid(
+                tgt, attrs, plan["origin"], plan["cell_size"], plan["dims"],
+                plan["cap"], plan["kc"], est=est_code, tile=plan["tile"],
+                mask=tgt_mask, active_cells=plan.get("active_cells"))
 
     grid = build(pplan)
-    nd_t = int(grid.n_dropped)
+    nd_t = int(trace.to_host(grid.n_dropped))
     if nd_t > max(64, 0.002 * tgt_np.shape[0]):
         # the drop-bounded cap lost a meaningful fraction of the target:
         # retry once at the occupancy maximum before accepting it
@@ -384,21 +415,22 @@ def _registration_icp_pool(source, src, src_mask, src_aux, tgt, tgt_mask,
         if regrown is not None:
             pplan = regrown
             grid = build(pplan)
-            nd_t = int(grid.n_dropped)
-    T, idx, fit, rmse, it, nq_drop = fused_icp.icp_core_pool(
-        src, src_mask, src_aux, grid, init_T, max_dist,
-        pplan["rebin_margin"], criteria.relative_fitness,
-        criteria.relative_rmse, pplan["qp"], est_type,
-        criteria.max_iteration, extra_params=extra_params)
+            nd_t = int(trace.to_host(grid.n_dropped))
+    with trace.span("registration.loop", branch="pool"):
+        T, idx, fit, rmse, it, nq_drop = fused_icp.icp_core_pool(
+            src, src_mask, src_aux, grid, init_T, max_dist,
+            pplan["rebin_margin"], criteria.relative_fitness,
+            criteria.relative_rmse, pplan["qp"], est_type,
+            criteria.max_iteration, extra_params=extra_params)
     console.log_debug("pooled ICP finished after %s iterations", it)
     res = _make_result(T, idx, fit, rmse, len(source))
     res.n_dropped_target = nd_t
-    res.n_dropped_queries = int(nq_drop)
+    res.n_dropped_queries = int(trace.to_host(nq_drop))
     res.iterations = it
     if res.n_dropped_queries:
         console.log_warning("pool query binning dropped %d source points",
                             res.n_dropped_queries)
-    return res
+    return _traced_result(res, "pool")
 
 
 def _registration_icp_rungrid(source, src, src_mask, src_normals, tgt,
@@ -407,18 +439,20 @@ def _registration_icp_rungrid(source, src, src_mask, src_normals, tgt,
     """The run-grid branch of `registration_icp` (PT2PT, PT2PL, SYM), for
     targets whose pool plan is rejected (pool cells that would need a
     cap above 128)."""
-    grid = rungrid.make_rungrid(
-        tgt, attrs, plan["origin"], plan["cell_size"], plan["dims"],
-        plan["cap"], mask=tgt_mask, est=est_code, kc=plan["kc"])
-    T, idx, fit, rmse, it = fused_icp.icp_core_rungrid(
-        src, src_mask, src_normals, grid, init_T, max_dist,
-        plan["rebin_margin"], criteria.relative_fitness,
-        criteria.relative_rmse, plan["qcap"], est_type,
-        criteria.max_iteration)
+    with trace.span("registration.build", branch="run"):
+        grid = rungrid.make_rungrid(
+            tgt, attrs, plan["origin"], plan["cell_size"], plan["dims"],
+            plan["cap"], mask=tgt_mask, est=est_code, kc=plan["kc"])
+    with trace.span("registration.loop", branch="run"):
+        T, idx, fit, rmse, it = fused_icp.icp_core_rungrid(
+            src, src_mask, src_normals, grid, init_T, max_dist,
+            plan["rebin_margin"], criteria.relative_fitness,
+            criteria.relative_rmse, plan["qcap"], est_type,
+            criteria.max_iteration)
     console.log_debug("run-grid ICP finished after %s iterations", it)
     res = _make_result(T, idx, fit, rmse, len(source))
     res.iterations = it
-    return res
+    return _traced_result(res, "run")
 
 
 def evaluate_registration(source, target,

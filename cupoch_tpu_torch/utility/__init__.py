@@ -3,7 +3,7 @@ codec (`dl_converter`, DLPack interop, loads with the package), with
 the JAX package's flat names re-exported from their modules."""
 import torch
 
-from . import console, eigen, lzf, shape, transforms
+from . import console, eigen, lzf, shape, trace, transforms
 from .console import (
     ConsoleProgressBar,
     VerbosityLevel,
@@ -49,7 +49,8 @@ def is_cuda_available() -> bool:
 
 
 __all__ = [
-    "console", "eigen", "lzf", "shape", "transforms", "resolve_device",
+    "console", "eigen", "lzf", "shape", "trace", "transforms",
+    "resolve_device",
     "is_cuda_available",
     "ConsoleProgressBar", "VerbosityLevel", "get_verbosity_level",
     "log_debug", "log_error", "log_info", "log_warning",

@@ -17,6 +17,8 @@ import subprocess
 import tempfile
 from typing import Dict, List, Optional
 
+from . import trace
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -92,5 +94,10 @@ def load(name: str) -> ctypes.CDLL:
     """The built library for `csrc/<name>.cu`, building it if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = _loaded[name] = ctypes.CDLL(build_all([name])[name])
+        with trace.span("kernel.load", kernel=name):
+            built = not os.path.exists(_lib_path(name))
+            lib = _loaded[name] = ctypes.CDLL(build_all([name])[name])
+            trace.set_attrs(built=built)
+        if built:
+            trace.count("kernel.builds")
     return lib

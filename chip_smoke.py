@@ -3527,7 +3527,7 @@ def _multi_phase(np, torch, ctt, reset_counts, counts, path_counts, card,
         single(src, tgt, tn), single(fsrc, ftgt, ftn))
     plan = ctt.knn.poolgrid.plan_poolgrid(tgt, RADIUS, query_points=src,
                                           est=2)
-    n_cells = plan["active_cells"].size \
+    n_cells = len(plan["active_cells"]) \
         if plan["active_cells"] is not None else int(np.prod(plan["dims"]))
     gt_sphere, init_sphere = sphere_graph(np, *cfg["rings"])[:2]
     C, L, n_obs, k = cfg["ba"]

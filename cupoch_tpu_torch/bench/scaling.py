@@ -133,7 +133,7 @@ def collective_split(n_devices: Optional[int] = None,
     tgt_d = torch.as_tensor(tgt, device=dev)
     attrs, est_code = fused_icp.make_target_attrs(
         est, tgt_d, torch.as_tensor(tn, device=dev))
-    plan = rungrid.plan_rungrid(tgt, 0.03, margin=0.25, query_points=src,
+    plan = rungrid.plan_rungrid(tgt_d, 0.03, margin=0.25, query_points=src,
                                 nch=int(attrs.shape[1]))
     grid = rungrid.make_rungrid(
         tgt_d, attrs, plan["origin"], plan["cell_size"], plan["dims"],

@@ -88,7 +88,7 @@ def search_neighbors(queries, data, param: KDTreeSearchParam,
     if st == KDTreeSearchParam.SearchType.Knn:
         if big:
             out = rungrid.knn_search_grid(
-                queries.cpu().numpy(), data.cpu().numpy(), param.knn,
+                None, data.cpu().numpy(), param.knn,
                 data_mask=data_mask, queries_dev=queries, data_dev=data)
             if out is not None:
                 return out
@@ -100,7 +100,7 @@ def search_neighbors(queries, data, param: KDTreeSearchParam,
                                               data_mask=data_mask)
         return idx, d2
     out = rungrid.knn_search_grid(
-        queries.cpu().numpy(), data.cpu().numpy(), max_nn, radius=radius,
+        None, data.cpu().numpy(), max_nn, radius=radius,
         data_mask=data_mask, queries_dev=queries, data_dev=data)
     if out is not None:
         return out

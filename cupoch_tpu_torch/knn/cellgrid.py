@@ -32,6 +32,7 @@ import torch
 
 from ..utility import trace
 from ..utility.device import resolve_device
+from . import plan_stats
 from .rollgrid import (CAND_FILL, INVALID_INDEX, LANE_BYTES, OFFSETS,
                        LaneRanked, _bin_by_key, _bin_query_soa, _cell_keys,
                        _round_up, reduce_and_scatter)
@@ -74,61 +75,55 @@ class CellGrid(LaneRanked):
 
 
 @trace.planner("cell")
-def plan_cellgrid(points: np.ndarray, radius: float,
+def plan_cellgrid(points, radius: float,
                   max_cells: int = 64_000_000, cap_limit: int = 128,
                   cap_percentile: float = 99.5,
                   mem_budget_bytes: int = 3 << 30) -> Optional[dict]:
-    """Host sizing, as the JAX package's: dims, origin, cap and the
+    """Sizing on the device of `points` (a tensor; an array plans on the
+    CPU; `plan_stats`), as the JAX package's: dims, origin, cap and the
     active list (occupied cells dilated by one ring, in linear-id
-    order, padded to a multiple of 8 with the value C). The budget
-    counts LANE_BYTES a candidate lane where the JAX package counts 16
-    (see `rollgrid.plan_rollgrid`)."""
-    pts = np.asarray(points)
-    finite = np.isfinite(pts).all(-1)
-    if not finite.any() or radius <= 0:
+    order, padded to a multiple of 8 with the value C; int32 on that
+    device). The budget counts LANE_BYTES a candidate lane where the
+    JAX package counts 16 (see `rollgrid.plan_rollgrid`)."""
+    pts = plan_stats.as_points(points)
+    if radius <= 0:
         return None
-    lo = pts[finite].min(0).astype(np.float64)
-    hi = pts[finite].max(0).astype(np.float64)
+    finite, lo_d, n_finite, lo, hi = plan_stats.bounds(pts)
+    if n_finite == 0:
+        return None
     cell = float(radius)
-    dims_core = np.maximum(1, np.ceil((hi - lo) / cell + 1e-6).astype(int))
+    dims_core = plan_stats.core_dims(lo, hi, cell)
     dims = tuple(int(d) + 2 for d in dims_core)
     n_cells = int(np.prod(dims))
     if n_cells > max_cells:
         return None
     origin = (lo - cell).astype(np.float32)
-    cidx = np.floor((pts[finite] - origin) / cell).astype(np.int64)
-    cidx = np.clip(cidx, 0, np.asarray(dims) - 1)
-    lin = (cidx[:, 0] * dims[1] + cidx[:, 1]) * dims[2] + cidx[:, 2]
-    counts = np.bincount(lin, minlength=n_cells)
-    occupied_lin = np.nonzero(counts)[0]
-    occ = counts[occupied_lin]
-    cap = int(np.percentile(occ, cap_percentile)) if occ.size else 8
+    # cell ids in the points' dtype from the float32 origin, as the
+    # reference computes them
+    origin_d = (lo_d - plan_stats.scalar(cell, lo_d)).float()
+    counts = plan_stats.counts(plan_stats.cell_ids(
+        plan_stats.floor_div(pts, origin_d, cell), finite, dims, clip=True),
+        n_cells)
+    # the occupied cells dilated by one ring within the grid, in
+    # linear-id order: the reference's sorted unique of the 27
+    # neighbours of every occupied cell
+    act = plan_stats.dilate27((counts > 0).reshape(dims)).reshape(-1)
+    n_occ, cap_a, cap_b, n_act = plan_stats.read([plan_stats.order_stats(
+        plan_stats.ascending(counts), [cap_percentile]), act.sum()])
+    cap = int(plan_stats.percentile(int(n_occ), cap_a, cap_b,
+                                    cap_percentile)) if n_occ else 8
     if cap > cap_limit:
         return None
     cap = max(8, _round_up(cap, 8))
-    # the occupied cells dilated by one ring within the grid: three 1-D
-    # dilations of the occupancy volume (the 27-cell cube is separable),
-    # in linear-id order: the reference's sorted unique of the 27
-    # neighbours of every occupied cell, without sorting them
-    act = (counts > 0).reshape(dims)
-    for ax in range(3):
-        grown = act.copy()
-        lo = [slice(None)] * 3
-        hi = [slice(None)] * 3
-        lo[ax], hi[ax] = slice(0, -1), slice(1, None)
-        grown[tuple(lo)] |= act[tuple(hi)]
-        grown[tuple(hi)] |= act[tuple(lo)]
-        act = grown
-    active = np.flatnonzero(act).astype(np.int64)
-    n_active = _round_up(max(8, active.size), 8)
+    n_active = _round_up(max(8, int(n_act)), 8)
     kc = _round_up(27 * cap, 128)
     if n_active * kc * LANE_BYTES + n_cells * 4 > mem_budget_bytes:
         return None
-    active_pad = np.full(n_active, n_cells, np.int64)
-    active_pad[:active.size] = active
     return {"dims": dims, "origin": origin, "cap": cap,
             "cell_size": np.float32(cell),
-            "active": active_pad.astype(np.int32), "n_active": n_active}
+            "active": plan_stats.set_ids(act, act.cumsum(0) - 1, n_active,
+                                         n_cells),
+            "n_active": n_active}
 
 
 def build_cellgrid(points, origin, cell_size, active,
@@ -142,7 +137,9 @@ def build_cellgrid(points, origin, cell_size, active,
     dims = tuple(int(d) for d in dims)
     C = dims[0] * dims[1] * dims[2]
     A = int(n_active)
-    active = torch.as_tensor(np.asarray(active, np.int64), device=dev)
+    active = torch.as_tensor(active if torch.is_tensor(active)
+                             else np.asarray(active), dtype=torch.int64,
+                             device=dev)
     real = active < C
     lut = torch.full((C + 2,), INVALID_INDEX, dtype=torch.int32, device=dev)
     lut[active[real]] = torch.arange(A, dtype=torch.int32,

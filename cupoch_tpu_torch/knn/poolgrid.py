@@ -32,7 +32,7 @@ import torch
 
 from ..utility import trace
 from ..utility.device import resolve_device
-from . import poolgrid_slot
+from . import plan_stats, poolgrid_slot
 from .rungrid import (
     EST_NONE, EST_PT2PT, EST_PT2PL, EST_SYM, INVALID_INDEX, N_SUMS,
     RUN_OFFSETS, SENTINEL_BIN, WINDOW, _bin_to_slots, _lin_morton,
@@ -139,13 +139,13 @@ class PoolGrid:
 
 
 # ---------------------------------------------------------------------------
-# host-side plan (numpy; identical to the JAX package's plan)
+# plan, on the cloud's device (identical to the JAX package's plan)
 # ---------------------------------------------------------------------------
 
 @trace.planner("pool")
-def plan_poolgrid(points: np.ndarray, radius: float,
+def plan_poolgrid(points, radius: float,
                   margin: float = 0.375,
-                  query_points: Optional[np.ndarray] = None,
+                  query_points=None,
                   cap_percentile: float = 99.5,
                   max_cells: int = 2_000_000,
                   cap_limit: int = 128,
@@ -154,50 +154,83 @@ def plan_poolgrid(points: np.ndarray, radius: float,
                   qp_limit: int = 8192,
                   est: int = EST_NONE,
                   shards: int = 1) -> Optional[dict]:
-    """Host sizing. Returns None when a dense grid is unreasonable.
+    """Sizing on the device of `points` (a tensor; an array plans on the
+    CPU), read back in two small reads (`plan_stats`). Returns None
+    when a dense grid is unreasonable. `active_cells`, the compact
+    grid's active cell ids, stays on that device (int32).
 
     cell = radius*(1+margin): queries binned at transform T_bin stay
     valid for the 27-neighborhood while every point has moved less
     than radius*margin since binning."""
-    pts = np.asarray(points)
-    finite = np.isfinite(pts).all(-1)
-    if not finite.any() or radius <= 0:
+    pts = plan_stats.as_points(points)
+    if radius <= 0:
         return None
-    lo = pts[finite].min(0).astype(np.float64)
-    hi = pts[finite].max(0).astype(np.float64)
+    finite, lo_d, npts_f, lo, hi = plan_stats.bounds(pts)
+    if npts_f == 0:
+        return None
+    dev = pts.device
     cell = float(radius) * (1.0 + float(margin))
-    dims_core = np.maximum(1, np.ceil((hi - lo) / cell + 1e-6).astype(int))
+    dims_core = plan_stats.core_dims(lo, hi, cell)
     dims = tuple(int(d) + 2 for d in dims_core)
     n_cells = int(np.prod(dims))
     if n_cells > max_cells:
         return None
-    cidx = np.floor((pts[finite] - lo) / cell).astype(np.int64)
-    cidx = np.minimum(cidx, dims_core - 1)
+    counts = plan_stats.core_counts(pts, finite, lo_d, cell, dims_core)
+    s = plan_stats.ascending(counts)
+    # predicted target drops sum((count - c)+) of each candidate cap c,
+    # from prefix sums of the sorted counts
+    caps = torch.arange(8, cap_limit + 1, 8, dtype=s.dtype, device=dev)
+    pre = torch.cat([s.new_zeros(1, dtype=torch.int64), s.cumsum(0)])
+    k = torch.searchsorted(s, caps, right=True)
+    drops = pre[-1] - pre[k] - caps * (s.numel() - k)
 
-    def _counts(ci, dc):
-        lin = (ci[:, 0] * dc[1] + ci[:, 1]) * dc[2] + ci[:, 2]
-        return np.bincount(lin, minlength=int(np.prod(dc)))
+    # active-cell compaction (surface clouds): a cell whose 27-
+    # neighborhood holds no target point can never yield a
+    # correspondence, so its table rows need not exist and queries
+    # binned there are dropped as provably matchless
+    occ3 = torch.zeros(dims, dtype=torch.bool, device=dev)
+    occ3[1:-1, 1:-1, 1:-1] = (counts > 0).reshape(tuple(dims_core))
+    act = plan_stats.dilate27(occ3).reshape(-1)
+    rank = act.cumsum(0) - 1
+    n_act = act.sum()
+    parts = [plan_stats.order_stats(s, [cap_percentile]), s[-1], n_act,
+             drops]
 
-    counts = _counts(cidx, dims_core)
-    occupied = counts[counts > 0]
-    npts_f = int(finite.sum())
-    if occupied.size == 0:
+    # per-supertile query counts (for pool sizing): z-major supertiles
+    # of `tile` consecutive (active) cells
+    if query_points is not None:
+        q = plan_stats.as_points(query_points).to(dev)
+        qlin = plan_stats.cell_ids(
+            plan_stats.floor_div(q.double(), lo_d, cell) + 1,
+            torch.isfinite(q).all(-1), dims, clip=False)
+        qrank = torch.where(n_act <= int(0.55 * n_cells),
+                            torch.where(act, rank, -1),
+                            torch.arange(n_cells, device=dev))
+        qrank = torch.cat([qrank, qrank.new_full((1,), -1)])[qlin]
+        n_tiles = -(-n_cells // tile)
+        tcnt = torch.zeros(n_tiles + 1, dtype=torch.float64, device=dev)
+        tcnt.index_add_(0, torch.where(qrank >= 0, qrank // tile, n_tiles),
+                        torch.ones_like(qrank, dtype=torch.float64))
+        parts += [(qlin < n_cells).sum(),
+                  plan_stats.order_stats(plan_stats.ascending(tcnt[:-1]),
+                                         [cap_percentile])]
+    host = plan_stats.read(parts)
+    n_occ, cap_a, cap_b, count_max, n_active = host[:5]
+    drops = host[5:5 + caps.numel()]
+    if n_occ == 0:
         cap = 8
     elif cap_percentile >= 100.0:
-        cap = int(occupied.max())
+        cap = int(count_max)
     else:
         # drop-bounded capacity: the smallest cap whose predicted target
-        # drops sum((count-cap)+) stay under 0.15% of the cloud (below
-        # the caller's 0.2% regrow threshold)
+        # drops stay under 0.15% of the cloud (below the caller's 0.2%
+        # regrow threshold)
         budget = max(32, int(0.0015 * npts_f))
-        cap = None
-        for c in range(8, cap_limit + 1, 8):
-            drops = int(np.maximum(occupied - c, 0).sum())
-            if drops <= budget:
-                cap = c
-                break
+        cap = next((c for c, d in zip(range(8, cap_limit + 1, 8), drops)
+                    if d <= budget), None)
         if cap is None:
-            pct = int(np.percentile(occupied, cap_percentile))
+            pct = int(plan_stats.percentile(int(n_occ), cap_a, cap_b,
+                                            cap_percentile))
             if pct > cap_limit:
                 return None
             cap = pct
@@ -207,59 +240,19 @@ def plan_poolgrid(points: np.ndarray, radius: float,
     kc = _round_up(27 * cap, WINDOW)
     assert 27 * cap <= poolgrid_slot.SLOT_MASK + 1
 
-    # active-cell compaction (surface clouds): a cell whose 27-
-    # neighborhood holds no target point can never yield a
-    # correspondence, so its table rows need not exist and queries
-    # binned there are dropped as provably matchless
-    occ3 = np.zeros(dims, bool)
-    occ3[1:-1, 1:-1, 1:-1] = (counts > 0).reshape(tuple(dims_core))
-    act3 = np.zeros(dims, bool)
-    for dx in (-1, 0, 1):
-        for dy in (-1, 0, 1):
-            for dz in (-1, 0, 1):
-                act3 |= np.roll(occ3, (dx, dy, dz), (0, 1, 2))
-    n_active = int(act3.sum())
+    n_active = int(n_active)
     compact = n_active <= int(0.55 * n_cells)
-    if compact:
-        cells_list = np.flatnonzero(act3.reshape(-1)).astype(np.int32)
-    else:
-        cells_list = np.arange(n_cells, dtype=np.int32)
-
-    # per-cell query counts (for pool sizing)
-    qcnt = None
-    if query_points is not None:
-        qpn = np.asarray(query_points)
-        qf = np.isfinite(qpn).all(-1)
-        if qf.any():
-            qc = np.floor((qpn[qf] - lo) / cell).astype(np.int64) + 1
-            inb = (qc >= 0).all(-1) & (qc < dims).all(-1)
-            if inb.any():
-                linq = (qc[inb, 0] * dims[1] + qc[inb, 1]) * dims[2] \
-                    + qc[inb, 2]
-                qcnt = np.bincount(linq, minlength=n_cells)
-
-    # z-major supertiles of `tile` consecutive (active) cells
-    active_cells = cells_list if compact else None
-    c_pad = _round_up(cells_list.size, tile * shards)
+    active_cells = plan_stats.set_ids(act, rank, n_active, 0) \
+        if compact else None
+    c_pad = _round_up(n_active if compact else n_cells, tile * shards)
     qp = 16 * tile
-    if qcnt is not None:
-        if compact:
-            amap = np.full(n_cells, -1, np.int64)
-            amap[cells_list] = np.arange(cells_list.size)
-            ranks = amap[np.flatnonzero(qcnt)]
-            reps = qcnt[np.flatnonzero(qcnt)]
-            keep = ranks >= 0
-            ranks, reps = ranks[keep], reps[keep]
-        else:
-            nz = np.flatnonzero(qcnt)
-            ranks, reps = nz, qcnt[nz]
-        if ranks.size:
-            tcnt = np.bincount(ranks // tile, weights=reps,
-                               minlength=c_pad // tile)
-            tocc = tcnt[tcnt > 0]
-            if tocc.size:
-                qp = int(np.percentile(tocc, cap_percentile))
-        qp = int(qp * 1.2) + 8
+    if query_points is not None:
+        n_q_in, n_tocc, qp_a, qp_b = host[5 + caps.numel():]
+        if n_q_in:
+            if n_tocc:
+                qp = int(plan_stats.percentile(int(n_tocc), qp_a, qp_b,
+                                               cap_percentile))
+            qp = int(qp * 1.2) + 8
     qp = _round_up(max(qp, 8), 128 if qp > 128 else 8)
     if qp > qp_limit:
         return None
@@ -412,19 +405,20 @@ def make_poolgrid(points, attrs, origin, cell_size, dims, cap, kc,
                   est: int = EST_NONE, tile: int = 32, mask=None,
                   active_cells=None, shards: int = 1) -> PoolGrid:
     """Build the grid on `points.device`. `active_cells`: optional int
-    array of active cell ids from plan_poolgrid (compact surface-cloud
-    grid); padded here to a multiple of `tile * shards` with -1."""
+    tensor or array of active cell ids from plan_poolgrid (compact
+    surface-cloud grid); padded here, on the device, to a multiple of
+    `tile * shards` with -1."""
     dev = points.device
     origin = torch.as_tensor(np.asarray(origin, np.float32), device=dev)
     cell_size = torch.as_tensor(np.float32(cell_size), device=dev)
     cell_map = None
     act = None
     if active_cells is not None:
-        act_np = np.asarray(active_cells, np.int32)
-        ca_pad = _round_up(max(act_np.shape[0], 1),
-                           int(tile) * int(shards))
-        act = torch.as_tensor(np.pad(act_np, (0, ca_pad - act_np.shape[0]),
-                                     constant_values=-1), device=dev)
+        act = torch.as_tensor(active_cells if torch.is_tensor(active_cells)
+                              else np.asarray(active_cells),
+                              dtype=torch.int32, device=dev)
+        ca_pad = _round_up(max(act.shape[0], 1), int(tile) * int(shards))
+        act = torch.cat([act, act.new_full((ca_pad - act.shape[0],), -1)])
         cell_map = _cell_map_from_active(
             act, int(dims[0]) * int(dims[1]) * int(dims[2]))
     table, binfields, off, n_dropped = build_poolgrid_arrays(

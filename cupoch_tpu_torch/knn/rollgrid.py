@@ -25,7 +25,7 @@ import torch
 
 from ..utility import trace
 from ..utility.device import resolve_device
-from . import rollgrid_nn
+from . import plan_stats, rollgrid_nn
 from .rungrid import _bin_to_slots, _round_up, scatter_to_source
 
 INVALID_INDEX = -1
@@ -93,40 +93,36 @@ class RollGrid(LaneRanked):
 
 
 @trace.planner("roll")
-def plan_rollgrid(points: np.ndarray, radius: float,
+def plan_rollgrid(points, radius: float,
                   max_cells: int = 2_000_000, cap_limit: int = 128,
                   cap_percentile: float = 99.5,
                   mem_budget_bytes: int = 3 << 30) -> Optional[dict]:
-    """Host sizing, as the JAX package's: dims (ghost shell included,
-    each rounded up to even), origin, cap (the `cap_percentile` of the
-    occupied cells' counts, rounded up to 8). None when a dense grid
-    does not suit the cloud (degenerate extent, too many cells, a cap
-    above `cap_limit`, or a neighbourhood tensor above
-    `mem_budget_bytes`). The budget counts LANE_BYTES a lane where the
-    JAX package counts 16 (it keeps no lane rank), so a grid within a
-    ninth of the budget is refused here and accepted there."""
-    pts = np.asarray(points)
-    finite = np.isfinite(pts).all(-1)
-    if not finite.any():
-        return None
-    lo = pts[finite].min(0).astype(np.float64)
-    hi = pts[finite].max(0).astype(np.float64)
+    """Sizing on the device of `points` (a tensor; an array plans on the
+    CPU; `plan_stats`), as the JAX package's: dims (ghost shell
+    included, each rounded up to even), origin, cap (the
+    `cap_percentile` of the occupied cells' counts, rounded up to 8).
+    None when a dense grid does not suit the cloud (degenerate extent,
+    too many cells, a cap above `cap_limit`, or a neighbourhood tensor
+    above `mem_budget_bytes`). The budget counts LANE_BYTES a lane where
+    the JAX package counts 16 (it keeps no lane rank), so a grid within
+    a ninth of the budget is refused here and accepted there."""
+    pts = plan_stats.as_points(points)
     cell = float(radius)
     if cell <= 0:
         return None
-    dims_core = np.maximum(1, np.ceil((hi - lo) / cell + 1e-6).astype(int))
+    finite, lo_d, n_finite, lo, hi = plan_stats.bounds(pts)
+    if n_finite == 0:
+        return None
+    dims_core = plan_stats.core_dims(lo, hi, cell)
     dims = tuple(int(d) + 2 + (int(d) % 2) for d in dims_core)
     n_cells = int(np.prod(dims))
     if n_cells > max_cells:
         return None
-    cidx = np.floor((pts[finite] - lo) / cell).astype(np.int64)
-    cidx = np.minimum(cidx, dims_core - 1)
-    lin = (cidx[:, 0] * dims_core[1] + cidx[:, 1]) * dims_core[2] \
-        + cidx[:, 2]
-    counts = np.bincount(lin, minlength=int(np.prod(dims_core)))
-    occupied = counts[counts > 0]
-    cap = int(np.percentile(occupied, cap_percentile)) \
-        if occupied.size else 8
+    counts = plan_stats.core_counts(pts, finite, lo_d, cell, dims_core)
+    n_occ, cap_a, cap_b = plan_stats.read([plan_stats.order_stats(
+        plan_stats.ascending(counts), [cap_percentile])])
+    cap = int(plan_stats.percentile(int(n_occ), cap_a, cap_b,
+                                    cap_percentile)) if n_occ else 8
     if cap > cap_limit:
         return None
     cap = max(8, _round_up(cap, 8))

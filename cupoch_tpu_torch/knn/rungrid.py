@@ -26,6 +26,7 @@ import torch
 
 from ..utility import trace
 from ..utility.device import resolve_device
+from . import plan_stats
 
 INVALID_INDEX = -1
 BIG = 3.0e18
@@ -124,76 +125,73 @@ def padded_cells(dims) -> int:
 
 
 # ---------------------------------------------------------------------------
-# host-side plan (numpy; identical to the JAX package's plan)
+# plan, on the cloud's device (identical to the JAX package's plan)
 # ---------------------------------------------------------------------------
 
 @trace.planner("run")
-def plan_rungrid(points: np.ndarray, radius: float,
+def plan_rungrid(points, radius: float,
                  margin: float = 0.25,
-                 query_points: Optional[np.ndarray] = None,
+                 query_points=None,
                  cap_percentile: float = 99.5,
                  max_cells: int = 2_000_000,
                  cap_limit: int = 128,
                  mem_budget_bytes: int = 5 << 30,
                  nch: int = 4) -> Optional[dict]:
-    """Host sizing. Returns None when a dense grid is unreasonable.
+    """Sizing on the device of `points` (a tensor; an array plans on the
+    CPU), read back in two small reads (`plan_stats`). Returns None
+    when a dense grid is unreasonable.
 
     cell = radius*(1+margin): queries binned at transform T_bin stay
     valid for the 27-neighborhood as long as every point has moved
     less than radius*margin since binning."""
-    pts = np.asarray(points)
-    finite = np.isfinite(pts).all(-1)
-    if not finite.any() or radius <= 0:
+    pts = plan_stats.as_points(points)
+    if radius <= 0:
         return None
-    lo = pts[finite].min(0).astype(np.float64)
-    hi = pts[finite].max(0).astype(np.float64)
+    finite, lo_d, n_finite, lo, hi = plan_stats.bounds(pts)
+    if n_finite == 0:
+        return None
     cell = float(radius) * (1.0 + float(margin))
-    dims_core = np.maximum(1, np.ceil((hi - lo) / cell + 1e-6).astype(int))
+    dims_core = plan_stats.core_dims(lo, hi, cell)
     dims = tuple(int(d) + 2 for d in dims_core)
     n_cells = int(np.prod(dims))
     if n_cells > max_cells:
         return None
-    cidx = np.floor((pts[finite] - lo) / cell).astype(np.int64)
-    cidx = np.minimum(cidx, dims_core - 1)
-
-    def _counts3d(ci, dc):
-        lin = (ci[:, 0] * dc[1] + ci[:, 1]) * dc[2] + ci[:, 2]
-        return np.bincount(lin, minlength=int(np.prod(dc))).reshape(dc)
-
-    counts = _counts3d(cidx, dims_core)
-    occupied = counts[counts > 0]
-    cap = int(np.percentile(occupied, cap_percentile)) if occupied.size \
-        else 8
+    counts = plan_stats.core_counts(pts, finite, lo_d, cell, dims_core)
+    # lanes are sorted by distance at build, so KC can truncate to the
+    # 99.9th percentile of 27-block occupancy instead of 27*cap
+    blk = plan_stats.box27(counts.reshape(tuple(dims_core)))
+    parts = [plan_stats.order_stats(plan_stats.ascending(counts),
+                                    [cap_percentile]),
+             plan_stats.order_stats(plan_stats.ascending(blk), [99.9])]
+    if query_points is not None:
+        # query-side cell capacity
+        q = plan_stats.as_points(query_points).to(pts.device)
+        qlin = plan_stats.cell_ids(
+            plan_stats.floor_div(q.double(), lo_d, cell),
+            torch.isfinite(q).all(-1), dims_core, clip=False)
+        qcnt = plan_stats.counts(qlin, int(np.prod(dims_core)))
+        parts.append(plan_stats.order_stats(plan_stats.ascending(qcnt),
+                                            [cap_percentile]))
+    host = plan_stats.read(parts)
+    n_occ, cap_a, cap_b, n_blk, blk_a, blk_b = host[:6]
+    cap = int(plan_stats.percentile(int(n_occ), cap_a, cap_b,
+                                    cap_percentile)) if n_occ else 8
     if cap > cap_limit:
         return None
     cap = max(8, _round_up(cap, 8))
-    # lanes are sorted by distance at build, so KC can truncate to the
-    # 99.9th percentile of 27-block occupancy instead of 27*cap
-    blk = np.zeros(np.asarray(dims_core) + 2, np.int64)
-    for dx in (0, 1, 2):
-        for dy in (0, 1, 2):
-            for dz in (0, 1, 2):
-                blk[dx:dx + dims_core[0], dy:dy + dims_core[1],
-                    dz:dz + dims_core[2]] += counts
-    blk_occ = blk[blk > 0]
     kc_full = _round_up(27 * cap, WINDOW)
-    if blk_occ.size:
+    if n_blk:
         kc = min(kc_full, max(WINDOW, _round_up(
-            int(np.percentile(blk_occ, 99.9)), WINDOW)))
+            int(plan_stats.percentile(int(n_blk), blk_a, blk_b, 99.9)),
+            WINDOW)))
     else:
         kc = kc_full
-    # query-side cell capacity
     qcap = cap
     if query_points is not None:
-        qp = np.asarray(query_points)
-        qf = np.isfinite(qp).all(-1)
-        if qf.any():
-            qc = np.floor((qp[qf] - lo) / cell).astype(np.int64)
-            inb = ((qc >= 0) & (qc < dims_core)).all(-1)
-            if inb.any():
-                qcnt = _counts3d(qc[inb], dims_core)
-                qocc = qcnt[qcnt > 0]
-                qcap = int(np.percentile(qocc, cap_percentile))
+        n_qocc, q_a, q_b = host[6:]
+        if n_qocc:
+            qcap = int(plan_stats.percentile(int(n_qocc), q_a, q_b,
+                                             cap_percentile))
         # rebinning shifts occupancy a little; leave headroom
         qcap = max(8, _round_up(int(qcap * 1.25) + 2, 8))
     cp = padded_cells(dims)
@@ -705,7 +703,9 @@ def knn_search_grid(queries_np, data_np, k: int,
     together) reuses a built grid on the same cloud; its result is accepted only under the same test. Returns
     (idx [Q, k] int32, d2 [Q, k]) on the device of `data_dev` (the CPU
     when not given), or None when no dense grid suits the cloud (the
-    caller falls back).
+    caller falls back). `queries_np` is read only without `queries_dev`;
+    the plan runs where `data_dev` lives, and the host copy `data_np`
+    keys the cache and gives the density.
 
     The plan and the density see only the rows `data_mask` keeps. The
     JAX package plans over every row, so the zero rows that pad a cloud
@@ -713,7 +713,6 @@ def knn_search_grid(queries_np, data_np, k: int,
     past its limit and send every padded search above 20k points (all
     of `estimate_normals`) to brute force."""
     data_np = np.asarray(data_np)
-    queries_np = np.asarray(queries_np)
     n = data_np.shape[0]
     keep = np.isfinite(data_np).all(-1)
     if data_mask is not None:
@@ -726,12 +725,16 @@ def knn_search_grid(queries_np, data_np, k: int,
     data_j = data_dev if data_dev is not None \
         else torch.as_tensor(data_np, dtype=torch.float32)
     dev = data_j.device
-    q_j = queries_dev if queries_dev is not None \
-        else torch.as_tensor(queries_np, dtype=torch.float32, device=dev)
+    q_j = queries_dev if queries_dev is not None else torch.as_tensor(
+        np.asarray(queries_np), dtype=torch.float32, device=dev)
     mask_j = None
+    keep_j = torch.isfinite(data_j).all(-1)
     if data_mask is not None:
         mask_j = torch.as_tensor(data_mask).to(dev)
         data_mask = mask_j.cpu().numpy()
+        keep_j = keep_j & mask_j.bool()
+    # the plan sees the kept rows: the others are made non-finite
+    plan_pts = torch.where(keep_j[:, None], data_j, float("nan"))
 
     def found(idx):
         return (idx >= 0).sum(-1)
@@ -766,8 +769,8 @@ def knn_search_grid(queries_np, data_np, k: int,
         r_est = min(r_est, float(radius))
     attrs0 = data_j.new_zeros((n, 0))
     for _ in range(max_retries):
-        plan = plan_rungrid(kept, r_est, margin=0.0,
-                            query_points=queries_np, cap_percentile=100.0,
+        plan = plan_rungrid(plan_pts, r_est, margin=0.0,
+                            query_points=q_j, cap_percentile=100.0,
                             cap_limit=256)
         if plan is None:
             return None

@@ -132,7 +132,7 @@ def sharded_registration_icp(
     src, mask = _source_shard(src_np, mesh)
     tgt, attrs, est_code, init, src_t = _target(
         tgt_np, tgt_normals_np, est_type, init_T, src_np, mesh)
-    plan = rungrid.plan_rungrid(tgt_np, max_dist, margin=margin,
+    plan = rungrid.plan_rungrid(tgt, max_dist, margin=margin,
                                 query_points=src_t,
                                 nch=int(attrs.shape[1]))
     if plan is None:
@@ -166,7 +166,7 @@ def ring_sharded_registration_icp(
     tgt, attrs, est_code, init, src_t = _target(
         tgt_np, tgt_normals_np, est_type, init_T, src_np, mesh)
     D = mesh.size
-    plan = poolgrid.plan_poolgrid(tgt_np, max_dist, margin=margin,
+    plan = poolgrid.plan_poolgrid(tgt, max_dist, margin=margin,
                                   query_points=src_t, est=est_code,
                                   shards=D)
     if plan is None:

@@ -208,10 +208,10 @@ def registration_filterreg(source, target, init=None,
     # linear-time grid E-step above the dense threshold
     if len(source) * len(target) > _GRID_THRESHOLD ** 2:
         trunc = 3.0 * option.sigma_initial
-        src_t = source.points.cpu().numpy() @ init_T[:3, :3].T \
-            + init_T[:3, 3]
-        plan = rungrid.plan_rungrid(target.points.cpu().numpy(), trunc,
-                                    margin=0.25, query_points=src_t, nch=0)
+        src_t = transform_points(torch.as_tensor(init_T).to(dev),
+                                 source.points)
+        plan = rungrid.plan_rungrid(target.points, trunc, margin=0.25,
+                                    query_points=src_t, nch=0)
         if plan is not None:
             grid = rungrid.make_rungrid(
                 tgt, tgt.new_zeros((cap_t, 0)), plan["origin"],

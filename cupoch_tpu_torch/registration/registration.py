@@ -225,14 +225,13 @@ def _choose_corres(target, tgt_padded, tgt_mask, max_dist):
     n = len(target)
     if n <= _GRID_THRESHOLD:
         return False, None
-    pts_np = trace.to_host(target.points).numpy()
-    plan = rollgrid.plan_rollgrid(pts_np, max_dist)
+    plan = rollgrid.plan_rollgrid(target.points, max_dist)
     if plan is not None:
         with trace.span("registration.build", branch="roll"):
             return "roll", rollgrid.build_rollgrid(
                 tgt_padded, plan["origin"], plan["cell_size"], plan["dims"],
                 plan["cap"], mask=tgt_mask)
-    cplan = cellgrid.plan_cellgrid(pts_np, max_dist)
+    cplan = cellgrid.plan_cellgrid(target.points, max_dist)
     if cplan is not None:
         with trace.span("registration.build", branch="cell"):
             return "cell", cellgrid.build_cellgrid(
@@ -355,9 +354,8 @@ def _registration_icp(source, target, max_correspondence_distance, init,
     if n_tgt <= _GRID_THRESHOLD:
         return generic(False, None)
 
-    src_np = trace.to_host(source.points).numpy()
-    initn = init_T.numpy()
-    src_np_t = src_np @ initn[:3, :3].T + initn[:3, 3]
+    # the plans' queries: the source at the initial pose, on the device
+    src_t = transform_points(init_T.to(source.points.device), source.points)
     tgt_aux, src_aux, extra_params = None, src_normals, (0.0, 0.0)
     if est_type == _ET.ColoredICP:
         tgt_aux = {"intensity": aux["tgt_intensity"],
@@ -370,17 +368,16 @@ def _registration_icp(source, target, max_correspondence_distance, init,
         src_aux = fused_icp.cov_upper6(aux["src_cov"])
     attrs, est_code = fused_icp.make_target_attrs(
         est_type, tgt, tgt_normals, tgt_aux)
-    tgt_np = trace.to_host(target.points).numpy()
-    pplan = poolgrid.plan_poolgrid(tgt_np, max_dist, query_points=src_np_t,
-                                   est=est_code)
+    pplan = poolgrid.plan_poolgrid(target.points, max_dist,
+                                   query_points=src_t, est=est_code)
     if pplan is not None:
         return _registration_icp_pool(
-            source, src, src_mask, src_aux, tgt, tgt_mask, attrs, est_code,
-            src_np_t, tgt_np, pplan, init_T, max_dist, est_type, criteria,
+            source, target, src, src_mask, src_aux, tgt, tgt_mask, attrs,
+            est_code, src_t, pplan, init_T, max_dist, est_type, criteria,
             extra_params)
     if est_type in _RUN_GRID_ESTIMATORS:
-        plan = rungrid.plan_rungrid(tgt_np, max_dist, query_points=src_np_t,
-                                    nch=attrs.shape[1])
+        plan = rungrid.plan_rungrid(target.points, max_dist,
+                                    query_points=src_t, nch=attrs.shape[1])
         if plan is not None:
             return _registration_icp_rungrid(
                 source, src, src_mask, src_normals, tgt, tgt_mask, attrs,
@@ -388,8 +385,8 @@ def _registration_icp(source, target, max_correspondence_distance, init,
     return generic(*_choose_corres(target, tgt, tgt_mask, max_dist))
 
 
-def _registration_icp_pool(source, src, src_mask, src_aux, tgt, tgt_mask,
-                           attrs, est_code, src_np_t, tgt_np, pplan, init_T,
+def _registration_icp_pool(source, target, src, src_mask, src_aux, tgt,
+                           tgt_mask, attrs, est_code, src_t, pplan, init_T,
                            max_dist, est_type, criteria, extra_params):
     """The pooled-grid branch of `registration_icp`, with one regrow of
     the cell capacity when the planned cap drops too many targets."""
@@ -403,14 +400,14 @@ def _registration_icp_pool(source, src, src_mask, src_aux, tgt, tgt_mask,
 
     grid = build(pplan)
     nd_t = int(trace.to_host(grid.n_dropped))
-    if nd_t > max(64, 0.002 * tgt_np.shape[0]):
+    if nd_t > max(64, 0.002 * len(target)):
         # the drop-bounded cap lost a meaningful fraction of the target:
         # retry once at the occupancy maximum before accepting it
         console.log_warning(
             "pool grid dropped %d target points; regrowing cell capacity",
             nd_t)
         regrown = poolgrid.plan_poolgrid(
-            tgt_np, max_dist, query_points=src_np_t, est=est_code,
+            target.points, max_dist, query_points=src_t, est=est_code,
             cap_percentile=100.0)
         if regrown is not None:
             pplan = regrown
@@ -469,11 +466,10 @@ def evaluate_registration(source, target,
     src, src_mask, _ = _prep(source, False)
     tgt, tgt_mask, _ = _prep(target, False)
     if len(target) > _GRID_THRESHOLD:
-        Tn = T.numpy()
-        src_t_np = source.points.cpu().numpy() @ Tn[:3, :3].T + Tn[:3, 3]
         plan = rungrid.plan_rungrid(
-            target.points.cpu().numpy(), max_correspondence_distance,
-            margin=0.0, query_points=src_t_np, nch=0)
+            target.points, max_correspondence_distance, margin=0.0,
+            query_points=transform_points(T.to(src.device), source.points),
+            nch=0)
         if plan is not None:
             grid = rungrid.make_rungrid(
                 tgt, tgt.new_zeros((tgt.shape[0], 0)), plan["origin"],

@@ -27,7 +27,7 @@ module's state.
 Spans, in the port's layers (README.md lists them with their readers):
 - `registration.icp` (root of `registration_icp`; `source_points`,
   `target_points`, `branch` pool / run / roll / cell / hash / brute,
-  `iterations`), `knn.plan` (`planner`, `accepted`),
+  `iterations`), `knn.plan` (`planner`, `device`, `accepted`, `reads`),
   `registration.build` and `registration.loop` (`branch`);
 - `odometry.rgbd` (root of `compute_rgbd_odometry`), `odometry.prepare`,
   `odometry.level` (`level`, `iterations`), `odometry.information`, and
@@ -35,7 +35,8 @@ Spans, in the port's layers (README.md lists them with their readers):
   `odometry.jacobians`, `odometry.reduce` and `odometry.solve`;
 - `host.read` (`bytes`), `kernel.load` (`kernel`, `built`).
 Counters: `registration.branch.<branch>`, `registration.iterations`,
-`knn.plan_refused.<planner>`, `host.reads`, `host.read_bytes`,
+`knn.plan_on_card.<planner>`, `knn.plan_refused.<planner>`,
+`host.reads`, `host.read_bytes`,
 `kernel.builds`; `counters()` adds the kernel wrappers' launch counts
 (`launches.<kernel>`) and the k-NN grid cache's statistics
 (`grid_cache.<stat>`), read where they live.
@@ -154,17 +155,27 @@ def to_host(x):
 
 
 def planner(kind: str):
-    """Decorator of a k-NN grid plan, which returns a plan or None: a
-    `knn.plan` span (`planner` kind, `accepted` whether a plan came
-    back) and `knn.plan_refused.<kind>` counted at each refusal."""
+    """Decorator of a k-NN grid plan, which takes the cloud first and
+    returns a plan or None: a `knn.plan` span (`planner` kind, `device`
+    the cloud's device type, `accepted` whether a plan came back,
+    `reads` the blocking reads it made), `knn.plan_on_card.<kind>`
+    counted for each plan of a CUDA tensor and `knn.plan_refused.<kind>`
+    at each refusal."""
     def wrap(plan_fn):
         @functools.wraps(plan_fn)
-        def traced(*args, **kwargs):
+        def traced(points, *args, **kwargs):
             if not _on:
-                return plan_fn(*args, **kwargs)
-            with _open("knn.plan", {"planner": kind}) as s:
-                plan = plan_fn(*args, **kwargs)
+                return plan_fn(points, *args, **kwargs)
+            # a tensor's device type; an array (numpy's `device` is the
+            # string "cpu") plans on a CPU tensor
+            dev = getattr(getattr(points, "device", None), "type", "cpu")
+            reads = _counters.get("host.reads", 0)
+            with _open("knn.plan", {"planner": kind, "device": dev}) as s:
+                plan = plan_fn(points, *args, **kwargs)
                 s.attrs["accepted"] = plan is not None
+                s.attrs["reads"] = _counters.get("host.reads", 0) - reads
+            if dev == "cuda":
+                count(f"knn.plan_on_card.{kind}")
             if plan is None:
                 count(f"knn.plan_refused.{kind}")
             return plan

@@ -108,8 +108,10 @@ def test_torch_trace_planner_marks_refusals():
     assert plan(True) == {"cap": 8} and plan(False) is None
     sp = trace.spans()
     assert [(s.name, s.attrs) for s in sp] == [
-        ("knn.plan", {"planner": "demo", "accepted": True}),
-        ("knn.plan", {"planner": "demo", "accepted": False})]
+        ("knn.plan", {"planner": "demo", "device": "cpu", "accepted": True,
+                      "reads": 0}),
+        ("knn.plan", {"planner": "demo", "device": "cpu", "accepted": False,
+                      "reads": 0})]
     assert trace.counters()["knn.plan_refused.demo"] == 1
     assert plan.__name__ == "plan"
 
@@ -252,11 +254,15 @@ def test_torch_trace_registration_icp_spans(branch):
     assert all(s.call == root.call for s in sp)
     kids = _children(sp, root)
     plans = [s.attrs for s in kids if s.name == "knn.plan"]
+    # each plan reads the cloud's bounds, then its statistics
     if branch == "pool":
-        assert plans == [{"planner": "pool", "accepted": True}]
+        assert plans == [{"planner": "pool", "device": "cpu",
+                          "accepted": True, "reads": 2}]
     else:
-        assert plans == [{"planner": "pool", "accepted": False},
-                         {"planner": "run", "accepted": True}]
+        assert plans == [{"planner": "pool", "device": "cpu",
+                          "accepted": False, "reads": 2},
+                         {"planner": "run", "device": "cpu",
+                          "accepted": True, "reads": 2}]
     assert [s.attrs for s in kids if s.name == "registration.build"] \
         == [{"branch": branch}]
     (loop,) = [s for s in kids if s.name == "registration.loop"]

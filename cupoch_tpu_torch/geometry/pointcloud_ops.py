@@ -328,8 +328,7 @@ def cluster_dbscan(points: torch.Tensor, eps, min_points: int,
     scalar read a sweep (whether any label changed)."""
     N = points.shape[0]
     mask = _all(points, mask)
-    grid = gridhash.build_grid(points, eps, mask=mask,
-                               bucket_cap=max(32, max_nn))
+    grid = gridhash.build_grid(points, eps, mask=mask)
     idx, _, cnt = gridhash.query_hybrid(grid, points, eps, max_nn)
     core = mask & (cnt >= min_points)            # the counts include self
     nbr_valid = idx >= 0

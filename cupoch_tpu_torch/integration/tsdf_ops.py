@@ -20,6 +20,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..utility import trace
 from . import marching_cubes_tables as mct
 
 #: voxels a slab of `integrate` holds at most (its temporaries are a few
@@ -223,7 +224,8 @@ def raycast(tsdf, weight, color_vol, K, cam_to_world, voxel_length,
     trilinear gradient and its colour the nearest voxel's. The march
     ends after `max_steps`, or earlier once every ray has stopped
     (tested every STOP_CHECK_STEPS steps: a stopped ray's hit and
-    crossing never change). Returns ([H*W, 3] points, normals, colours),
+    crossing never change; counted in `tsdf.stop_checks`, the steps in
+    `tsdf.march_steps`). Returns ([H*W, 3] points, normals, colours),
     NaN where there is no hit, and the steps the march took."""
     dev = tsdf.device
     R = tsdf.shape[0]
@@ -274,9 +276,12 @@ def raycast(tsdf, weight, color_vol, K, cam_to_world, voxel_length,
         stopped = stopped | new_hit | (live_in & (f < 0.0) & (f_new > 0.0)) \
             | (ray_len >= t_far)
         f = torch.where(inb, f_new, f)
-        if (i + 1) % STOP_CHECK_STEPS == 0 and bool(stopped.all()):
-            steps = i + 1
-            break
+        if (i + 1) % STOP_CHECK_STEPS == 0:
+            trace.count("tsdf.stop_checks")
+            if bool(trace.to_host(stopped.all())):
+                steps = i + 1
+                break
+    trace.count("tsdf.march_steps", steps)
 
     def trilinear_obs(p):
         """Trilinear tsdf at world points p and whether all 8 corners

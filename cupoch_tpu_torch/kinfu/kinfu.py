@@ -7,6 +7,12 @@ estimation), TSDF integration of the frame, and a new raycast of every
 level. The device work is in the volume, the factories and
 `registration_icp`; the host runs the levels and keeps the pose, a 4x4
 f32 camera-to-world matrix.
+
+Spans (`utility/trace.py`): `kinfu.frame` (root; `frame`, `tracked`)
+holds `kinfu.surface`, `kinfu.track` with a `kinfu.track.level` a level
+(`level`, `points`, `target_points`, `iterations`, `branch`, the
+`registration.*` spans inside), `kinfu.integrate` and a `kinfu.raycast`
+a level (`level`).
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ from ..registration import (
     registration_colored_icp,
     registration_icp,
 )
-from ..utility import console
+from ..utility import console, trace
 
 
 class KinfuOption:
@@ -91,25 +97,36 @@ class KinfuPipeline:
     def process_frame(self, image: RGBDImage) -> bool:
         """cupoch KinfuPipeline::ProcessFrame; False for an empty frame or
         a lost track."""
+        with trace.span("kinfu.frame", frame=self.frame_id):
+            tracked = self._process_frame(image)
+            trace.set_attrs(tracked=tracked)
+            return tracked
+
+    def _process_frame(self, image: RGBDImage) -> bool:
         if image.color is None or image.depth is None \
                 or not image.color.has_data() or not image.depth.has_data():
             return False
-        _, smooth_pyramid, pc_pyramid = self.surface_measurement(
-            image.to(self.device))
+        with trace.span("kinfu.surface"):
+            _, smooth_pyramid, pc_pyramid = self.surface_measurement(
+                image.to(self.device))
         if self.frame_id > 0:
             # the frame's clouds are in the camera frame and the model
             # in the world frame: ICP gives the camera-to-world pose
-            pose, ok = self.pose_estimation(
-                self.cur_pose, pc_pyramid, self.model_pyramid)
+            with trace.span("kinfu.track"):
+                pose, ok = self.pose_estimation(
+                    self.cur_pose, pc_pyramid, self.model_pyramid)
             if not ok:
                 return False
             self.cur_pose = pose
         extrinsic = np.linalg.inv(self.cur_pose).astype(np.float32)
-        self.volume.integrate(smooth_pyramid[0], self.intrinsic, extrinsic)
+        with trace.span("kinfu.integrate"):
+            self.volume.integrate(smooth_pyramid[0], self.intrinsic,
+                                  extrinsic)
         for i in range(self.option.num_pyramid_levels):
-            self.model_pyramid[i] = self.volume.raycast(
-                self.intrinsic.scale(0.5 ** i), extrinsic,
-                self.option.sdf_trunc)
+            with trace.span("kinfu.raycast", level=i):
+                self.model_pyramid[i] = self.volume.raycast(
+                    self.intrinsic.scale(0.5 ** i), extrinsic,
+                    self.option.sdf_trunc)
         self.frame_id += 1
         return True
 
@@ -156,17 +173,22 @@ class KinfuPipeline:
                 continue
             criteria = ICPConvergenceCriteria(
                 max_iteration=opt.icp_iterations[level])
-            if opt.tf_type == TransformationEstimationType.PointToPlane:
-                res = registration_icp(
-                    src, tgt, opt.distance_threshold, cur,
-                    TransformationEstimationPointToPlane(), criteria)
-            elif opt.tf_type == TransformationEstimationType.ColoredICP:
-                res = registration_colored_icp(
-                    src, tgt, opt.distance_threshold, cur, criteria,
-                    lambda_geometric=0.968)
-            else:
-                console.log_error("[KinfuPipeline::PoseEstimation] "
-                                  "Unsupported transformation type.")
+            with trace.span("kinfu.track.level", level=level,
+                            points=len(src), target_points=len(tgt)):
+                if opt.tf_type == TransformationEstimationType.PointToPlane:
+                    res = registration_icp(
+                        src, tgt, opt.distance_threshold, cur,
+                        TransformationEstimationPointToPlane(), criteria)
+                elif opt.tf_type == TransformationEstimationType.ColoredICP:
+                    res = registration_colored_icp(
+                        src, tgt, opt.distance_threshold, cur, criteria,
+                        lambda_geometric=0.968)
+                else:
+                    console.log_error("[KinfuPipeline::PoseEstimation] "
+                                      "Unsupported transformation type.")
+                trace.set_attrs(
+                    iterations=res.iterations,
+                    branch=trace.last_attr("registration.icp", "branch"))
             cur = np.asarray(res.transformation, np.float32)
             if not np.isfinite(cur).all():
                 return cur, False

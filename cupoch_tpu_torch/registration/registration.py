@@ -78,9 +78,9 @@ class RegistrationResult:
 
 _GRID_THRESHOLD = 20000  # below this, brute-force 1-NN is faster than a grid
 # When every grid plan rejects a target (a surface scan with a search
-# radius that piles it into a few cells), tiled brute force stays exact
-# and affordable up to this many target points; the hash grid, whose
-# buckets keep 32 points each, would drop most candidates there.
+# radius that piles it into a few cells), tiled brute force serves up
+# to this many target points, as in the JAX package, and the exact hash
+# grid beyond.
 _BRUTE_FALLBACK_MAX = 200_000
 _RUN_GRID_ESTIMATORS = (_ET.PointToPoint, _ET.PointToPlane,
                         _ET.SymmetricMethod)

@@ -33,9 +33,17 @@ Spans, in the port's layers (README.md lists them with their readers):
   `odometry.level` (`level`, `iterations`), `odometry.information`, and
   in each Gauss-Newton step `odometry.correspondence`,
   `odometry.jacobians`, `odometry.reduce` and `odometry.solve`;
+- `kinfu.frame` (root of `KinfuPipeline.process_frame`; `frame`,
+  `tracked`), `kinfu.surface`, `kinfu.track` and in it a
+  `kinfu.track.level` a pyramid level (`level`, `points`,
+  `target_points`, `iterations`, `branch`), `kinfu.integrate`, and a
+  `kinfu.raycast` a level (`level`);
 - `host.read` (`bytes`), `kernel.load` (`kernel`, `built`).
 Counters: `registration.branch.<branch>`, `registration.iterations`,
 `knn.plan_on_card.<planner>`, `knn.plan_refused.<planner>`,
+`gridhash.queries`, `gridhash.slots` (candidate pairs scanned),
+`gridhash.rescued` (queries the finest level did not settle),
+`tsdf.march_steps`, `tsdf.stop_checks`,
 `host.reads`, `host.read_bytes`,
 `kernel.builds`; `counters()` adds the kernel wrappers' launch counts
 (`launches.<kernel>`) and the k-NN grid cache's statistics
@@ -132,6 +140,20 @@ def set_attrs(**kw) -> None:
     """Sets attributes of the innermost open span."""
     if _on and _stack:
         _stack[-1].attrs.update(kw)
+
+
+def last_attr(name: str, attr: str):
+    """Attribute `attr` of the last span named `name` opened inside the
+    innermost open span; None when tracing is off or there is none."""
+    if not _on or not _stack:
+        return None
+    top = _stack[-1].index
+    for s in reversed(_spans):
+        if s.index <= top:
+            break
+        if s.name == name:
+            return s.attrs.get(attr)
+    return None
 
 
 def count(name: str, n=1) -> None:

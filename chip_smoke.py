@@ -188,6 +188,15 @@ K4_INSTR_PER_VISIT = 11
 # shared-memory read
 K1_INSTR_PER_VISIT = 9
 K2_INSTR_PER_VISIT = 12
+# the brute-force 1-NN kernel (csrc/bruteforce_nn.cu): 3 FSUB, 3 FMUL
+# and 2 FADD rounded apart (8 f32 operations a pair, none fused), the
+# strict `<` and two selects
+BF_INSTR_PER_PAIR = 11
+BF_OPS_PER_PAIR = 8
+# KinFu's levels the brute-force kernel is held at: 1 (320x240, the
+# largest brute-force level) and 3 (80x60, few query blocks: the points
+# are split over many)
+BF_LEVELS = (1, 3)
 
 N_POINTS = 1_000_000
 RADIUS = 0.05
@@ -208,6 +217,9 @@ EVAL_RMSE_MAX = 5e-5
 GMM_RTOL, GMM_ATOL = 2e-5, 1e-5
 NO_LIBRARY = ("no single PyTorch call computes a sorted-lane masked argmin "
               "with a packed-attribute fetch, or these truncated moments")
+BF_LIBRARY = ("torch.cdist + argmin over the valid points in tiles of "
+              "8192 queries, which rounds differently and has no mask")
+BF_LIBRARY_TILE = 8192
 NO_LIBRARY_NN = ("no single PyTorch call computes a masked argmin with the "
                  "smallest-target-index tie rule; composite_ms times "
                  "torch.cdist + min over the same blocks, which rounds "
@@ -668,20 +680,21 @@ def global_registration(np, torch, ctt, reset_counts, counts, path_counts,
     line = check_global(np, out, T_true, v)
     # FGR ends in evaluate_registration: one correspondence launch of
     # kernel 2 when the run plan accepts the down-sampled target at
-    # 0.5v, else brute force and none
+    # 0.5v, else one of the brute-force kernel
     eplan = rungrid.plan_rungrid(td.points.cpu().numpy(), 0.5 * v,
                                  margin=0.0, nch=0)
-    want_fgr = 1 if eplan is not None else 0
+    want_fgr = "fused_corres" if eplan is not None else "bruteforce_nn"
     fl = out["fgr_launches"]
-    if fl["fused_corres"] != want_fgr or sum(fl.values()) != want_fgr:
-        raise AssertionError(f"FGR launches {fl}, expected "
-                             f"{want_fgr} correspondence launch")
+    if fl[want_fgr] != 1 or sum(fl.values()) != 1:
+        raise AssertionError(f"FGR launches {fl}, expected one "
+                             f"{want_fgr} launch")
     s_full, t_full = out["full"]
     branch = icp_branch(np, s_full, t_full, 0.4 * v,
                         out["fgr"].transformation)
     it = out["icp"].iterations
     icp_c = {k: c[k] - fl[k] for k in c}
-    kernel = {"pooled": "slot", "roll": "nn", "cell": "nn"}.get(branch)
+    kernel = {"pooled": "slot", "roll": "nn", "cell": "nn",
+              "brute force": "bruteforce_nn"}.get(branch)
     if kernel:
         _expect("global registration, refinement", icp_c, it, kernel)
     elif branch == "run":
@@ -695,7 +708,8 @@ def global_registration(np, torch, ctt, reset_counts, counts, path_counts,
           f"{len(td)} after outlier removal; FPFH {fs.dimension()} x "
           f"{fs.num()}, {ft.num()}; {line}; FGR launches {fl} (the run "
           f"plan at 0.5v {'accepts' if eplan else 'rejects'} the target: "
-          f"{'kernel 2' if eplan else 'brute force'}); refinement on the "
+          f"{'kernel 2' if eplan else 'the brute-force kernel'}); "
+          f"refinement on the "
           f"{branch} branch, launches {icp_c}; path launches {c}")
     marks.append(("checks", time.perf_counter()))
     warm = []
@@ -979,6 +993,23 @@ def render_room(np, pose, width, height, fx, fy, cx, cy):
     rgb = room_texture(np, o + d * t[..., None])
     rgb[~found] = 0
     return rgb, t.astype(np.float32)
+
+
+def rendered_surface(np, k, level):
+    """The room's surface as frame k of `rgbd_pose`'s trajectory sees it
+    through the PrimeSense camera at KinFu's pyramid level `level`
+    (640x480 halved `level` times), in the first camera's frame: [n, 3]
+    f32, a point a pixel that meets the room."""
+    s = 0.5 ** level
+    w, h, f, cx, cy = int(640 * s), int(480 * s), 525.0 * s, 319.5 * s, \
+        239.5 * s
+    pose = rgbd_pose(np, k)
+    _, depth = render_room(np, room_view(np) @ pose, w, h, f, f, cx, cy)
+    u, v = np.meshgrid(np.arange(w), np.arange(h))
+    z = depth.astype(np.float64)
+    pts = np.stack([(u - cx) / f * z, (v - cy) / f * z, z], -1)
+    pts = pts[depth > 0] @ pose[:3, :3].T + pose[:3, 3]
+    return pts.astype(np.float32)
 
 
 def room_distance(np, p):
@@ -1384,7 +1415,8 @@ def rgbd_phase(np, torch, ctt, reset_counts, counts, path_counts, card,
                           f"{max(v)}" for lv, v in steps.items()))
         for lv, br in branches.items():
             it = last[lv]["iterations"]
-            kernel = {"pooled": "slot", "roll": "nn", "cell": "nn"}.get(br)
+            kernel = {"pooled": "slot", "roll": "nn", "cell": "nn",
+                      "brute force": "bruteforce_nn"}.get(br)
             want = {kernel: it + 1} if kernel else \
                 {"fused_gn": it, "fused_corres": 1} if br == "run" else {}
             if last[lv]["launches"] != want:
@@ -4778,6 +4810,106 @@ def check_nn_reduce(torch, rollgrid_nn, nvcc, q_soa, grid, radius, mode,
             "valid_queries": n_valid, "busy_cells": busy}
 
 
+def bruteforce_cases(np, torch, dev):
+    """(level, queries, data, mask, nq, nd) at KinFu's BF_LEVELS: frame
+    3's surface onto frame 4's, every 53rd query on a target point and
+    every 97th target point again at the end (ties the least index must
+    win), both padded to `registration_icp`'s bucket size; the mask
+    keeps the target points and drops the padding, as the ICP loop's
+    does."""
+    from cupoch_tpu_torch.utility.shape import bucket_size, pad_axis0
+    for level in BF_LEVELS:
+        src = rendered_surface(np, 3, level)
+        tgt = rendered_surface(np, 4, level)
+        tgt = np.concatenate([tgt, tgt[::97]])
+        src[::53] = tgt[:len(src[::53])]
+        nq, nd = len(src), len(tgt)
+        q = pad_axis0(torch.as_tensor(src), bucket_size(nq)).to(dev)
+        d = pad_axis0(torch.as_tensor(tgt), bucket_size(nd)).to(dev)
+        mask = torch.arange(d.shape[0], device=dev) < nd
+        yield level, q, d, mask, nq, nd
+
+
+def check_bruteforce_nn(np, torch, bruteforce, nvcc, level, q, d, mask, nq,
+                        nd, card_clock):
+    """The brute-force 1-NN kernel against nn_search_plain on the same
+    card tensors, bit for bit: over the valid prefixes with the loop's
+    mask and with a scattered one (a fifth of the points dropped), and
+    over the whole padded clouds with the loop's mask. Then its time,
+    the plain version's, cdist + argmin's, and its bound for this run's
+    pairs."""
+    rng = np.random.default_rng(17 + level)
+    scattered = mask & torch.as_tensor(
+        rng.uniform(size=d.shape[0]) > 0.2, device=d.device)
+    max_err = 0.0
+    for name, m in (("loop's mask", mask), ("scattered mask", scattered)):
+        got = bruteforce.nn_search(q, d, data_mask=m, n_queries=nq,
+                                   n_data=nd)
+        want = bruteforce.nn_search_plain(q, d, m, nq, nd)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(want[1])
+        max_err = max(max_err, float(torch.where(
+            fin, (got[1] - want[1]).abs(), 0.0).max()))
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                             want[1])):
+            raise AssertionError(
+                f"bruteforce_nn level {level}, {name}: "
+                f"{int((got[0] != want[0]).sum())} indices and "
+                f"{int((got[1] != want[1]).sum())} distances differ from "
+                f"nn_search_plain")
+        if not (bool((got[0][nq:] == -1).all())
+                and bool(torch.isinf(got[1][nq:]).all())):
+            raise AssertionError(f"bruteforce_nn level {level}, {name}: a "
+                                 f"query past the count found a point")
+    idx, d2 = bruteforce.nn_search(q, d, data_mask=mask, n_queries=nq,
+                                   n_data=nd)
+    full = bruteforce.nn_search(q, d, data_mask=mask)
+    on = torch.arange(0, nq, 53, device=q.device)
+    torch.cuda.synchronize()
+    if not (torch.equal(full[0][:nq], idx[:nq])
+            and torch.equal(full[1][:nq], d2[:nq])):
+        raise AssertionError(f"bruteforce_nn level {level}: the padded call "
+                             f"disagrees with the counted one")
+    if not (bool((d2[on] == 0).all())
+            and torch.equal(idx[on], torch.arange(len(on), device=q.device,
+                                                  dtype=torch.int32))):
+        raise AssertionError(f"bruteforce_nn level {level}: a query on a "
+                             f"target point missed it or took a later copy")
+    ms = _time_ms(torch, lambda: bruteforce.nn_search(
+        q, d, data_mask=mask, n_queries=nq, n_data=nd), TIMED_LAUNCHES)
+    plain_ms = _time_ms(torch, lambda: bruteforce.nn_search_plain(
+        q, d, mask, nq, nd), 3)
+    qv, dv = q[:nq].contiguous(), d[:nd].contiguous()
+    library_ms = _time_ms(torch, lambda: [
+        torch.cdist(qv[i:i + BF_LIBRARY_TILE], dv).argmin(-1)
+        for i in range(0, nq, BF_LIBRARY_TILE)], 5)
+    del qv, dv
+    # least work: each valid (query, point) pair's 8 operations; the
+    # bytes are the two clouds, the mask and the outputs
+    pairs = nq * nd
+    n_ops = pairs * BF_OPS_PER_PAIR
+    n_bytes = (nq + nd) * 12 + nd + q.shape[0] * 8
+    bound_ms, bound_by = _bound(n_bytes, n_ops)
+    issue_ms = _issue_ms(pairs, BF_INSTR_PER_PAIR, card_clock)
+    ptxas = " | ".join(ln.strip().replace("ptxas info    : ", "")
+                       for ln in nvcc.build_logs.get("bruteforce_nn", "")
+                       .splitlines() if "Used" in ln or "spill" in ln) \
+        or "cached"
+    print(f"kernel[bruteforce_nn level {level}]: {nq} queries (padded "
+          f"{q.shape[0]}) on {nd} points (padded {d.shape[0]}), "
+          f"{pairs / 1e9:.3f} G pairs; bit for bit with nn_search_plain "
+          f"under the loop's and a scattered mask, the padded call equal; "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, library "
+          f"{library_ms:.3f} ms ({BF_LIBRARY}), bound {bound_ms:.4f} ms by "
+          f"{bound_by} ({n_ops / 1e9:.2f} G ops), issue ceiling "
+          f"{issue_ms:.4f} ms (computed: {BF_INSTR_PER_PAIR} instructions "
+          f"a pair); ptxas: {ptxas}")
+    return {"level": level, "queries": nq, "points": nd, "pairs": pairs,
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "issue_ms": issue_ms}
+
+
 def grid_cache_report(rungrid, phase):
     """Print what the k-NN grid cache (`knn_search_grid`) did in `phase`
     in this process, then start the next phase's count."""
@@ -4800,7 +4932,7 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this run needs an NVIDIA GPU")
     import cupoch_tpu_torch as ctt
-    from cupoch_tpu_torch.knn import (poolgrid, poolgrid_slot,
+    from cupoch_tpu_torch.knn import (bruteforce, poolgrid, poolgrid_slot,
                                       rollgrid, rollgrid_nn, rungrid,
                                       rungrid_fused, rungrid_gmm)
     from cupoch_tpu_torch.registration import fused_icp
@@ -4917,6 +5049,10 @@ def main():
                                mode, card_clock)
                for mode, q_soa, grid, radius in nn_cases(
                    np, torch, ftgt, fsrc, fT_true, dev)]
+    # 3f. the brute-force 1-NN kernel at KinFu's level shapes
+    bf_recs = [check_bruteforce_nn(np, torch, bruteforce, nvcc, *case,
+                                   card_clock)
+               for case in bruteforce_cases(np, torch, dev)]
     roll_plan = rollgrid.plan_rollgrid(ftgt, RADIUS)
     sheet, sheet_n = _sheet(np)
     sheet_src = sheet + np.float32(SHEET_SHIFT)
@@ -5198,6 +5334,22 @@ def main():
         "modes": {r["mode"]: {k: r[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "composite_ms",
             "max_abs_err", "bit_exact")} for r in nn_recs},
+    }, {
+        "name": "bruteforce_nn",
+        "route": "cuda",
+        "source": "cupoch_tpu_torch/csrc/bruteforce_nn.cu",
+        # the JAX package's brute force is plain XLA, no kernel
+        "replaces": None,
+        "launches": total["bruteforce_nn"],
+        "max_abs_err": max(r["max_abs_err"] for r in bf_recs),
+        "ms": bf_recs[0]["ms"],
+        "plain_ms": bf_recs[0]["plain_ms"],
+        "bound_ms": bf_recs[0]["bound_ms"],
+        "bound_by": bf_recs[0]["bound_by"],
+        "library_ms": bf_recs[0]["library_ms"],
+        "levels": {r["level"]: {k: r[k] for k in (
+            "queries", "points", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "issue_ms")} for r in bf_recs},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -5302,7 +5454,8 @@ def colored_gicp_paths(np, torch, ctt, rollgrid, reset_counts, counts,
     def rloop(g):
         out = regmod._icp_core(
             src_p, src_m, src_n, tgt_p, tgt_m, tgt_n, torch.eye(4), RADIUS,
-            REL_TOL, REL_TOL, ET.ColoredICP, ITERS, "roll", aux=aux, grid=g)
+            REL_TOL, REL_TOL, ET.ColoredICP, ITERS, "roll", aux=aux, grid=g,
+            counts=(len(fsource), len(ftarget)))
         torch.cuda.synchronize()
         return out
 

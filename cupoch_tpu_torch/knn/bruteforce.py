@@ -1,25 +1,42 @@
 """Tiled brute-force nearest-neighbour search (counterpart of the JAX
 package's `knn/bruteforce.py`; cupoch knn/kdtree_flann.h, bruteforce_nn.h).
 
-Pairwise squared distances are |q|^2 + |p|^2 - 2 q.p with the cross
-term as one `torch.matmul` per query tile, in full f32 (the package
-turns TF32 off at import). Outputs follow the reference contract:
-dense [Q, k] index / squared-distance tensors padded with -1 / +inf.
+`knn_search` and `hybrid_search` take pairwise squared distances as
+|q|^2 + |p|^2 - 2 q.p with the cross term as one `torch.matmul` per
+query tile, in full f32 (the package turns TF32 off at import). Outputs
+follow the reference contract: dense [Q, k] index / squared-distance
+tensors padded with -1 / +inf.
 
-`nn_search` is exact in f32 where the JAX package splits the operands
-into 8+8+8-bit bf16 parts for the TPU's matrix unit; so the two may
-pick different winners on ties at about 2^-24 relative, and the
-returned distance is recomputed exactly in both.
+`nn_search` (1-NN) is the wrapper of the hand-written kernel
+`csrc/bruteforce_nn.cu`, which replaces no TPU kernel (the JAX package
+scores with one bf16 matrix product a tile). On CUDA tensors it
+launches the kernel and counts the launch in `launches`; on CPU tensors
+it runs `nn_search_plain`, the plain PyTorch version. There is no
+fallback from one to the other: a CUDA tensor launches the kernel or
+raises. Both score the exact distance
+  d2 = (dx dx + dy dy) + dz dz,   d = q - p,
+every operation rounded on its own, and keep the least d2 and, on a
+tie, the least index, so the two agree bit for bit. The JAX package's
+8+8+8-bit split of |p|^2 - 2 q.p may pick another winner on ties at
+about 2^-24 relative; it recomputes the winner's distance in f32.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
 
+from ..utility import nvcc, trace
 from ..utility.shape import INVALID_INDEX
 
 _DEFAULT_TILE = 1024
+
+#: `nn_search` kernel launches since the count was last set to 0
+launches = 0
+
+# bytes of one of the two [T, N] f32 blocks `nn_search_plain` holds
+_PLAIN_CHUNK_BYTES = 1 << 28
 
 
 def _tiles(q: torch.Tensor, tile: int):
@@ -76,23 +93,125 @@ def hybrid_search(queries: torch.Tensor, data: torch.Tensor, radius,
     return idx, d2, within.sum(-1).to(torch.int32)
 
 
+def _counts(queries, data, n_queries, n_data):
+    Q, N = queries.shape[0], data.shape[0]
+    nq = Q if n_queries is None else int(n_queries)
+    nd = N if n_data is None else int(n_data)
+    if not (0 <= nq <= Q and 0 <= nd <= N):
+        raise ValueError(f"prefix counts ({nq}, {nd}) outside the clouds' "
+                         f"sizes ({Q}, {N})")
+    return nq, nd
+
+
+def _check(queries, data, data_mask):
+    if queries.dtype != torch.float32 or data.dtype != torch.float32:
+        raise TypeError("nn_search takes float32 queries and data")
+    if queries.dim() != 2 or queries.shape[1] != 3 or data.dim() != 2 \
+            or data.shape[1] != 3:
+        raise ValueError(f"nn_search takes [Q, 3] and [N, 3] clouds, not "
+                         f"{tuple(queries.shape)} and {tuple(data.shape)}")
+    if max(queries.shape[0], data.shape[0]) > 1 << 30:
+        raise ValueError("nn_search takes clouds of at most 2^30 points")
+    if queries.device != data.device:
+        raise ValueError("queries and data must share a device")
+    if data_mask is not None and (
+            data_mask.dtype != torch.bool
+            or data_mask.shape != (data.shape[0],)
+            or data_mask.device != data.device):
+        raise ValueError("data_mask must be a bool [N] tensor on the data's "
+                         "device")
+    if not (queries.is_contiguous() and data.is_contiguous() and (
+            data_mask is None or data_mask.is_contiguous())):
+        raise ValueError("nn_search takes contiguous tensors")
+
+
 def nn_search(queries: torch.Tensor, data: torch.Tensor,
-              data_mask: Optional[torch.Tensor] = None, tile: int = 4096
+              data_mask: Optional[torch.Tensor] = None, tile: int = 4096,
+              n_queries: Optional[int] = None, n_data: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """1-NN: (index [Q] int32, dist2 [Q]); dist2 is inf when the winner
-    is masked out (no valid data point)."""
+    """1-NN: (index [Q] int32, dist2 [Q] f32), the least exact squared
+    distance over the unmasked data points and, on a tie, the least
+    index; (-1, inf) where no data point is unmasked.
+
+    `n_queries` and `n_data` (host integers) are prefix counts: only the
+    first `n_queries` queries and the first `n_data` data points are
+    scored, the other queries get (-1, inf). A padded cloud passes its
+    count, so the padding costs nothing. `tile` is taken for the JAX
+    package's signature and not read: the kernel tiles on its own, the
+    plain version by `_PLAIN_CHUNK_BYTES`."""
+    global launches
+    _check(queries, data, data_mask)
+    nq, nd = _counts(queries, data, n_queries, n_data)
+    trace.count("bruteforce.pairs", nq * nd)
+    dev = queries.device
+    if dev.type == "cpu":
+        return nn_search_plain(queries, data, data_mask, nq, nd)
+    if dev.type != "cuda":
+        raise ValueError(f"nn_search runs on cuda or cpu, not {dev}")
     Q = queries.shape[0]
-    pn = (data * data).sum(-1)
+    lib = nvcc.load("bruteforce_nn")
+    size = lib.bruteforce_nn_scratch_bytes
+    size.argtypes = [ctypes.c_int] * 2
+    size.restype = ctypes.c_longlong
+    fn = lib.bruteforce_nn_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    scratch = torch.empty(size(Q, nd), dtype=torch.uint8, device=dev)
+    idx = torch.empty(Q, dtype=torch.int32, device=dev)
+    d2 = torch.empty(Q, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(queries.data_ptr(), data.data_ptr(),
+                 None if data_mask is None else data_mask.data_ptr(),
+                 scratch.data_ptr(), idx.data_ptr(), d2.data_ptr(), Q, nq,
+                 nd, stream)
+    if err != 0:
+        raise RuntimeError(f"bruteforce_nn launch failed: CUDA error {err}")
+    launches += 1
+    return idx, d2
+
+
+def nn_search_plain(queries: torch.Tensor, data: torch.Tensor,
+                    data_mask: Optional[torch.Tensor] = None,
+                    n_queries: Optional[int] = None,
+                    n_data: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of `nn_search`'s kernel, on any device: the
+    same arithmetic and tie rule, as many queries at a time as keep the
+    chunk's [T, N] distances within `_PLAIN_CHUNK_BYTES`."""
+    nq, nd = _counts(queries, data, n_queries, n_data)
+    Q, dev = queries.shape[0], queries.device
+    idx = torch.full((Q,), INVALID_INDEX, dtype=torch.int32, device=dev)
+    d2o = torch.full((Q,), float("inf"), dtype=torch.float32, device=dev)
+    if nq == 0 or nd == 0:
+        return idx, d2o
+    p = data[:nd]
+    # NaN never wins the kernel's strict `<`, nor does +inf; only a
+    # non-finite coordinate can make a NaN
+    finite = bool(torch.isfinite(queries[:nq]).all()
+                  & torch.isfinite(p).all())
+    pt = p.T.contiguous()                   # [3, nd]
     if data_mask is not None:
-        pn = torch.where(data_mask, pn, 1e30)
-    idxs, d2s = [], []
-    for q in _tiles(queries, tile):
-        # |q|^2 does not change the argmin
-        i = torch.argmin(pn[None, :] - 2.0 * (q @ data.T), -1)
-        d = q - data[i]
-        d2 = (d * d).sum(-1)
-        if data_mask is not None:
-            d2 = torch.where(data_mask[i], d2, float("inf"))
-        idxs.append(i.to(torch.int32))
-        d2s.append(d2)
-    return torch.cat(idxs)[:Q], torch.cat(d2s)[:Q]
+        # as the kernel stages them: a masked point scores +inf or NaN
+        pt = torch.where(data_mask[:nd], pt, float("inf"))
+    step = max(1, min(nq, _PLAIN_CHUNK_BYTES // (4 * nd)))
+    d2 = torch.empty((step, nd), dtype=torch.float32, device=dev)
+    dc = torch.empty_like(d2)
+    for q0 in range(0, nq, step):
+        q = queries[q0:min(q0 + step, nq)]
+        t = q.shape[0]
+        a, b = d2[:t], dc[:t]
+        torch.sub(q[:, 0:1], pt[0], out=a)
+        a.mul_(a)
+        for c in (1, 2):
+            torch.sub(q[:, c:c + 1], pt[c], out=b)
+            a.add_(b.mul_(b))               # (dx dx + dy dy) + dz dz
+        if not finite:
+            a.nan_to_num_(nan=float("inf"), posinf=float("inf"))
+        best, first = a.min(-1)             # the first index of a tie
+        ok = best < float("inf")
+        idx[q0:q0 + t] = torch.where(ok, first.to(torch.int32),
+                                     INVALID_INDEX)
+        d2o[q0:q0 + t] = torch.where(ok, best, float("inf"))
+    return idx, d2o

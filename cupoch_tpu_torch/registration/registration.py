@@ -116,10 +116,11 @@ def _make_result(T, idx, fit, rmse, n_src):
     return res
 
 
-def _correspondence_fn(tgt, tgt_mask, max_dist, use_grid, grid=None):
+def _correspondence_fn(tgt, tgt_mask, max_dist, use_grid, grid, counts):
     """1-NN within max_dist for transformed source points: (idx, d2),
     -1 / inf where none. `use_grid`: "roll" or "cell" (over `grid`),
-    True (a hash grid built here) or False (brute force)."""
+    True (a hash grid built here) or False (brute force, over the
+    prefixes `counts` = (source, target points) of the padded clouds)."""
     if use_grid == "roll":
         return lambda src_t: rollgrid.query_nn_rollgrid(grid, src_t,
                                                         max_dist)
@@ -133,7 +134,9 @@ def _correspondence_fn(tgt, tgt_mask, max_dist, use_grid, grid=None):
     r2 = torch.tensor(max_dist, dtype=torch.float32) ** 2
 
     def corres(src_t):
-        idx, d2 = bruteforce.nn_search(src_t, tgt, data_mask=tgt_mask)
+        idx, d2 = bruteforce.nn_search(src_t, tgt, data_mask=tgt_mask,
+                                       n_queries=counts[0],
+                                       n_data=counts[1])
         ok = d2 <= r2.to(d2.device)
         return torch.where(ok, idx, -1), torch.where(ok, d2, float("inf"))
 
@@ -143,17 +146,20 @@ def _correspondence_fn(tgt, tgt_mask, max_dist, use_grid, grid=None):
 def _icp_core(src, src_mask, src_normals, tgt, tgt_mask, tgt_normals,
               init_T, max_dist, relative_fitness, relative_rmse,
               est_type: TransformationEstimationType, max_iteration: int,
-              use_grid=False, aux=None, grid=None):
+              use_grid=False, aux=None, grid=None, *, counts):
     """The generic ICP loop on the device of the clouds: correspondence
     (`_correspondence_fn`), the estimator's normal system, a host solve
     and the pose composition, then the convergence test. Each iteration
     reads the system and the fitness statistics in one device-to-host
     copy. `aux` carries Colored ICP's intensities, target gradient and
-    square-rooted weights, or GICP's padded covariances. Returns (T
-    [4, 4] f32 on the host, idx [Np] int32 on the device, fitness, rmse
-    (host 0-d tensors), iterations run)."""
+    square-rooted weights, or GICP's padded covariances. `counts`: the
+    clouds' point counts (source, target), the prefixes their masks keep;
+    brute force scores no padding.
+    Returns (T [4, 4] f32 on the host, idx [Np] int32 on the device,
+    fitness, rmse (host 0-d tensors), iterations run)."""
     dev = src.device
-    corres_fn = _correspondence_fn(tgt, tgt_mask, max_dist, use_grid, grid)
+    corres_fn = _correspondence_fn(tgt, tgt_mask, max_dist, use_grid, grid,
+                                   counts)
     M = tgt.shape[0]
     rel_fit = torch.tensor(relative_fitness, dtype=torch.float32)
     rel_rmse = torch.tensor(relative_rmse, dtype=torch.float32)
@@ -345,7 +351,8 @@ def _registration_icp(source, target, max_correspondence_distance, init,
         T, idx, fit, rmse, it = _icp_core(
             src, src_mask, src_normals, tgt, tgt_mask, tgt_normals, init_T,
             max_dist, criteria.relative_fitness, criteria.relative_rmse,
-            est_type, criteria.max_iteration, use_grid, aux=aux, grid=grid)
+            est_type, criteria.max_iteration, use_grid, aux=aux, grid=grid,
+            counts=(len(source), n_tgt))
         console.log_debug("ICP finished after %s iterations", it)
         res = _make_result(T, idx, fit, rmse, len(source))
         res.iterations = it
@@ -488,5 +495,6 @@ def evaluate_registration(source, target,
     zeros = torch.zeros_like(src)
     T_out, idx, fit, rmse, _ = _icp_core(
         src, src_mask, zeros, tgt, tgt_mask, torch.zeros_like(tgt), T,
-        max_correspondence_distance, 0.0, 0.0, _ET.PointToPoint, 0)
+        max_correspondence_distance, 0.0, 0.0, _ET.PointToPoint, 0,
+        counts=(len(source), len(target)))
     return _make_result(T_out, idx, fit, rmse, len(source))

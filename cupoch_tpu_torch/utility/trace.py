@@ -43,6 +43,7 @@ Counters: `registration.branch.<branch>`, `registration.iterations`,
 `knn.plan_on_card.<planner>`, `knn.plan_refused.<planner>`,
 `gridhash.queries`, `gridhash.slots` (candidate pairs scanned),
 `gridhash.rescued` (queries the finest level did not settle),
+`bruteforce.pairs` (the (query, point) pairs `knn.nn_search` scored),
 `tsdf.march_steps`, `tsdf.stop_checks`,
 `host.reads`, `host.read_bytes`,
 `kernel.builds`; `counters()` adds the kernel wrappers' launch counts
@@ -239,19 +240,23 @@ def spans() -> list:
 
 def launch_counts() -> dict:
     """This process's kernel launches since the counters were set to 0."""
-    from ..knn import poolgrid_slot, rollgrid_nn, rungrid_fused, rungrid_gmm
+    from ..knn import (bruteforce, poolgrid_slot, rollgrid_nn, rungrid_fused,
+                       rungrid_gmm)
     return {"slot": poolgrid_slot.launches,
             "fused_corres": rungrid_fused.launches["corres"],
             "fused_gn": rungrid_fused.launches["gn"],
-            "gmm": rungrid_gmm.launches, "nn": rollgrid_nn.launches}
+            "gmm": rungrid_gmm.launches, "nn": rollgrid_nn.launches,
+            "bruteforce_nn": bruteforce.launches}
 
 
 def reset_launch_counts() -> None:
-    from ..knn import poolgrid_slot, rollgrid_nn, rungrid_fused, rungrid_gmm
+    from ..knn import (bruteforce, poolgrid_slot, rollgrid_nn, rungrid_fused,
+                       rungrid_gmm)
     poolgrid_slot.launches = 0
     rungrid_fused.launches.update(corres=0, gn=0)
     rungrid_gmm.launches = 0
     rollgrid_nn.launches = 0
+    bruteforce.launches = 0
 
 
 def counters() -> dict:

@@ -422,7 +422,8 @@ def test_torch_icp_core_generic_loop_matches_jax(rng):
             jnp.float32(1e-6), jnp.float32(1e-6), JET.PointToPlane, iters,
             False)
         Tt, idxt, fitt, rmset, itt = treg.registration._icp_core(
-            *args_t, torch.eye(4), 0.08, 1e-6, 1e-6, TET.PointToPlane, iters)
+            *args_t, torch.eye(4), 0.08, 1e-6, 1e-6, TET.PointToPlane, iters,
+            counts=(m, m))
         assert itt == int(itj)
         assert np.abs(Tt.numpy() - np.asarray(Tj)).max() < 1e-4
         assert abs(float(fitt) - float(fitj)) < 1e-3

@@ -26,7 +26,7 @@ from ..knn import rungrid, rungrid_gmm
 from ..utility import console
 from ..utility.shape import bucket_size, pad_axis0, valid_mask
 from ..utility.transforms import transform_points
-from .fused_icp import _aabb_corners, _displacement_bound
+from .fused_icp import _binning
 from .kabsch import N_STATS, kabsch_solve, kabsch_stats
 
 _OUTLIER_CONSTANT = 0.2  # permutohedral.h
@@ -157,22 +157,15 @@ def _filterreg_core_grid(src, src_mask, grid, init_T, sigma_initial,
     iteration. The truncation radius is 3 sigma_initial; sigma only
     shrinks during EM, so one grid serves the whole loop. Model points
     are re-binned when the motion since binning exceeds the margin."""
-    corners = _aabb_corners(src, src_mask).to(_HOST)
-    margin = float(np.float32(rebin_margin))
     r2 = torch.tensor(trunc_radius, dtype=torch.float32) ** 2
-    state = {}
-
-    def rebin(T):
-        state["qsoa"], state["qidx"] = rungrid.bin_queries(
+    binned = _binning(
+        lambda T: rungrid.bin_queries(
             src, transform_points(T.to(src.device), src), grid.origin,
-            grid.cell_size, grid.dims, qcap, mask=src_mask)
-        state["T_bin"] = T
+            grid.cell_size, grid.dims, qcap, mask=src_mask),
+        src, src_mask, rebin_margin)
 
     def e_step(T, sigma):
-        if "T_bin" not in state \
-                or _displacement_bound(T, state["T_bin"], corners) > margin:
-            rebin(T)
-        qsoa, qidx = state["qsoa"], state["qidx"]
+        qsoa, qidx = binned(T)
         params = rungrid.make_params(T, r2, grid,
                                      inv_2s2=1.0 / (2.0 * sigma * sigma))
         m0, M1, M2 = rungrid_gmm.gmm_moments(grid, qsoa, qidx, params)

@@ -1,28 +1,29 @@
-"""Grid ICP loops (cupoch RegistrationICP, registration.cu): over the
-pooled grid (`icp_core_pool`, every estimator) and over the run grid
-(`icp_core_rungrid`, the PT2PT/PT2PL/SYM fallback when the pool plan is
-rejected).
+"""The ICP loop (cupoch RegistrationICP, registration.cu): one
+iteration, `icp_loop`, under every loop of the port, and its grid
+backends: the pooled grid (`icp_core_pool`, every estimator) and the run
+grid (`icp_core_rungrid`, the PT2PT/PT2PL/SYM fallback when the pool
+plan is rejected). The generic backend, correspondence and normal
+system over brute force or a k-NN grid, is `registration._icp_core`.
 
-Each iteration is one pass over the grid: on the pooled grid the slot
-kernel picks correspondences and the epilogue reduces the Gauss-Newton
-(or Kabsch) sums on the device; on the run grid one fused kernel does
-both. Only those 32 floats come back to the host. The loop is a Python
-loop: every iteration reads the sums, and the host decides whether to
-re-bin (the pose has moved past the grid margin since the last
-binning, bounded exactly over the source AABB corners), forms the 6x6
-solve or the 3x3 Kabsch SVD in f32, composes the pose and tests
-convergence. So the pose, the
-re-binning bound and the solve live on the host, where their few
-hundred scalar operations cost microseconds; the point clouds, the
+Each iteration is one pass: on the pooled grid the slot kernel picks
+correspondences and the epilogue reduces the Gauss-Newton (or Kabsch)
+sums on the device; on the run grid one fused kernel does both. Only
+those 32 floats come back to the host. The loop is a Python loop: every
+iteration reads the sums, and the host decides whether to re-bin (the
+pose has moved past the grid margin since the last binning, bounded
+exactly over the source AABB corners), forms the 6x6 solve or the 3x3
+Kabsch SVD in f32, composes the pose and tests convergence. So the
+pose, the re-binning bound and the solve live on the host, where their
+few hundred scalar operations cost microseconds; the point clouds, the
 grid and both passes stay on the device.
 
 With a `mesh` (`parallel.collectives.Mesh`, JAX's `axis_name`), each
-loop is the body one rank runs on its shard of the source: the source
-box is reduced with pmin / pmax, the source count, the Gauss-Newton sums
-and the final count and error with psum, so that every rank takes the
-same pose, the same re-binning and the same convergence decision.
-`icp_core_pool_ring` also shards the pooled grid's score table by
-supertile and passes the shards round the ring.
+grid loop is the body one rank runs on its shard of the source: the
+source box is reduced with pmin / pmax, the source count, the
+Gauss-Newton sums and the final count and error with psum, so that
+every rank takes the same pose, the same re-binning and the same
+convergence decision. `icp_core_pool_ring` also shards the pooled
+grid's score table by supertile and passes the shards round the ring.
 """
 from __future__ import annotations
 
@@ -37,27 +38,6 @@ from .estimation import TransformationEstimationType
 from .kabsch import kabsch_solve
 
 _HOST = torch.device("cpu")
-
-
-def _displacement_bound(T, T_bin, corners):
-    """max_x in AABB |(T - T_bin) @ [x,1]|: affine in x, so the max
-    over the box is attained at a corner. corners: [8, 3]."""
-    D = T - T_bin
-    d = corners @ D[:3, :3].T + D[:3, 3]
-    return torch.sqrt((d * d).sum(-1).max())
-
-
-def _aabb_corners(src, src_mask, mesh=None):
-    big = 1e30
-    lo = torch.where(src_mask[:, None], src, big).min(0).values
-    hi = torch.where(src_mask[:, None], src, -big).max(0).values
-    if mesh is not None:
-        lo, hi = mesh.pmin(lo), mesh.pmax(hi)
-    return torch.stack([
-        torch.stack([hi[0] if i & 1 else lo[0],
-                     hi[1] if i & 2 else lo[1],
-                     hi[2] if i & 4 else lo[2]])
-        for i in range(8)])
 
 
 def _est_code(est_type: TransformationEstimationType) -> int:
@@ -138,26 +118,108 @@ def _psum(x, mesh):
     return x if mesh is None else mesh.psum(x)
 
 
+def fit_rmse(cnt, err, n_src):
+    """Fitness and inlier RMSE of a pass from its inlier count `cnt` and
+    squared error `err` (0-d f32 tensors on any device), over the host
+    tensor `n_src` source points."""
+    fit = cnt / n_src.to(cnt.device)
+    rmse = torch.where(cnt > 0, torch.sqrt(err / cnt.clamp(min=1.0)), 0.0)
+    return fit, rmse
+
+
 def _final_stats(d2, qidx, n_src, mesh):
     """(ok mask, fitness, rmse) of a correspondence pass over every
     rank."""
     ok = torch.isfinite(d2) & (qidx >= 0)
     cnt = _psum(ok.sum().to(torch.float32), mesh)
     err = _psum(torch.where(ok, d2, 0.0).sum(), mesh)
-    fit = cnt / n_src.to(cnt.device)
-    rmse = torch.where(cnt > 0, torch.sqrt(err / cnt.clamp(min=1.0)), 0.0)
-    return ok, fit, rmse
+    return (ok, *fit_rmse(cnt, err, n_src))
 
 
-def _stats_from_sums(est_type, sums, n_src):
-    if est_type == TransformationEstimationType.PointToPoint:
-        cnt, err = sums[0], sums[16]
-    else:
-        cnt, err = sums[27], sums[28]
-    fit = cnt / n_src
-    rmse = torch.sqrt(err / cnt.clamp(min=1.0))
-    rmse = torch.where(cnt > 0, rmse, 0.0)
-    return fit, rmse
+def icp_loop(step, at, update, final, n_src, init_T, relative_fitness,
+             relative_rmse, max_iteration: int):
+    """The ICP iteration of every loop (`registration._icp_core`,
+    `icp_core_pool`, `icp_core_pool_ring`, `icp_core_rungrid`): up to
+    `max_iteration` passes, each `step(T)`, the pass at pose T and its
+    one read of sums to the host; fitness and RMSE from the count and
+    squared error at indices `at` of the sums; the relative test against
+    the previous pass, which ends the loop at that pass's pose; else the
+    update `update(sums)` composed onto the pose on the host.
+    `final(T, stats)` evaluates the returned pose T, with `stats` the
+    (fitness, rmse) of the pass that converged there, or None when the
+    passes ran out. Returns (T [4, 4] f32 on the host, final's result,
+    passes run, whether a pass converged)."""
+    rel_fit = torch.tensor(relative_fitness, dtype=torch.float32)
+    rel_rmse = torch.tensor(relative_rmse, dtype=torch.float32)
+    T = torch.as_tensor(init_T, dtype=torch.float32).to(_HOST)
+    fit = rmse = stats = None
+    it = 0
+    while it < max_iteration:
+        sums = step(T)
+        fit2, rmse2 = fit_rmse(sums[at[0]], sums[at[1]], n_src)
+        it += 1
+        if fit is not None and bool(((fit - fit2).abs() < rel_fit)
+                                    & ((rmse - rmse2).abs() < rel_rmse)):
+            stats = fit2, rmse2
+            break
+        T = update(sums) @ T
+        fit, rmse = fit2, rmse2
+    return T, final(T, stats), it, stats is not None
+
+
+def _binning(rebin, src, src_mask, rebin_margin, mesh=None):
+    """`rebin(T)`'s binning of the source for pose T, made again only
+    when T has moved a source point more than `rebin_margin` since the
+    last binning: |(T - T_bin) @ [x, 1]| is affine in x, so its maximum
+    over the source box (over every rank, read to the host here) is at
+    a corner."""
+    big = 1e30
+    lo = torch.where(src_mask[:, None], src, big).min(0).values
+    hi = torch.where(src_mask[:, None], src, -big).max(0).values
+    if mesh is not None:
+        lo, hi = mesh.pmin(lo), mesh.pmax(hi)
+    corners = trace.to_host(torch.stack([
+        torch.stack([hi[0] if i & 1 else lo[0], hi[1] if i & 2 else lo[1],
+                     hi[2] if i & 4 else lo[2]]) for i in range(8)]))
+    margin = float(np.float32(rebin_margin))
+    last = {}
+
+    def moved(T):
+        D = T - last["T"]
+        d = corners @ D[:3, :3].T + D[:3, 3]
+        return torch.sqrt((d * d).sum(-1).max()) > margin
+
+    def binned(T):
+        if not last or moved(T):
+            last["T"], last["bins"] = T, rebin(T)
+        return last["bins"]
+
+    return binned
+
+
+def _grid_loop(grid_pass, est_type, n_src, mesh, Np, init_T,
+               relative_fitness, relative_rmse, max_iteration):
+    """`icp_loop` over a grid backend's `grid_pass(T, corres)`, the pass
+    at pose T: its [N_SUMS] sums, psum'd and read here, with the count
+    and error where the estimator's slot layout holds them and the
+    Kabsch or GN update; with `corres`, the exact final pass (d2, target
+    index, qidx) a binned query. Returns (T, idx [Np] int32 a source
+    point (-1 none), fitness, rmse, passes run)."""
+
+    def final(T, _):
+        d2, idx_bin, qidx = grid_pass(T, True)
+        ok, fit, rmse = _final_stats(d2, qidx, n_src, mesh)
+        idx_bin = torch.where(ok, idx_bin, rungrid.INVALID_INDEX)
+        return (rungrid.scatter_to_source(qidx, idx_bin, Np,
+                                          rungrid.INVALID_INDEX), fit, rmse)
+
+    at = (0, 16) if est_type == TransformationEstimationType.PointToPoint \
+        else (27, 28)
+    T, out, it, _ = icp_loop(
+        lambda T: trace.to_host(_psum(grid_pass(T, False), mesh)), at,
+        lambda sums: _update_from_sums(est_type, sums), final, n_src,
+        init_T, relative_fitness, relative_rmse, max_iteration)
+    return (T, *out, it)
 
 
 def icp_core_pool(src, src_mask, src_aux, grid: poolgrid.PoolGrid,
@@ -191,60 +253,38 @@ def _pool_loop(src, src_mask, src_aux, grid, init_T, max_dist,
                rebin_margin, relative_fitness, relative_rmse, qp: int,
                est_type, max_iteration: int, extra_params, mesh,
                shards: int, query):
-    """The pooled-grid loop of `icp_core_pool` and `icp_core_pool_ring`:
+    """The pooled-grid backend of `icp_core_pool` and `icp_core_pool_ring`:
     `query(qpool, params, corres)` is one pass over the grid (the [N_SUMS]
     GN sums, or (d2, idx) [G, QP] when `corres`), `shards` the blocks of
     supertiles the grid's table is split into."""
-    Np = src.shape[0]
-    est = _est_code(est_type)
     n_src = _n_source(src_mask, mesh)
-    n_extra = poolgrid.n_query_extra(est)
-    corners = trace.to_host(_aabb_corners(src, src_mask, mesh))
+    n_extra = poolgrid.n_query_extra(_est_code(est_type))
     r2 = torch.tensor(max_dist, dtype=torch.float32) ** 2
-    margin = float(np.float32(rebin_margin))
-    rel_fit = torch.tensor(relative_fitness, dtype=torch.float32)
-    rel_rmse = torch.tensor(relative_rmse, dtype=torch.float32)
+    dropped = None   # the most queries a binning dropped
 
     def rebin(T):
-        return poolgrid.bin_queries_pool(
+        nonlocal dropped
+        qpool, qidx, nq = poolgrid.bin_queries_pool(
             src, T, grid.origin, grid.cell_size, grid.dims, qp, grid.tile,
             extra=src_aux, n_extra=n_extra, mask=src_mask, shards=shards,
             cell_map=grid.cell_map,
             n_rank_pad=grid.n_tiles * shards * grid.tile)
+        dropped = nq if dropped is None else torch.maximum(dropped, nq)
+        return qpool, qidx
 
-    T = torch.as_tensor(init_T, dtype=torch.float32).to(_HOST)
-    T_bin = T
-    qpool, qidx, nq = rebin(T)
-    fit = rmse = torch.tensor(-1.0)
-    it = 0
-    while it < max_iteration:
-        if _displacement_bound(T, T_bin, corners) > margin:
-            qpool, qidx, nq2 = rebin(T)
-            T_bin = T
-            nq = torch.maximum(nq, nq2)
+    binned = _binning(rebin, src, src_mask, rebin_margin, mesh)
+
+    def grid_pass(T, corres):
+        qpool, qidx = binned(T)
+        if corres:   # at the returned pose, in exact mode
+            params = poolgrid.make_params(T, r2, grid)
+            return (*query(qpool, params, True), qidx)
         params = poolgrid.make_params(T, r2, grid, *extra_params)
-        sums = trace.to_host(_psum(query(qpool, params, False), mesh))
-        fit2, rmse2 = _stats_from_sums(est_type, sums, n_src)
-        converged = bool(((fit - fit2).abs() < rel_fit)
-                         & ((rmse - rmse2).abs() < rel_rmse)) and it > 0
-        it += 1
-        if converged:
-            break
-        T = _update_from_sums(est_type, sums) @ T
-        fit, rmse = fit2, rmse2
+        return query(qpool, params, False)
 
-    # final evaluation at the returned transform, in exact mode
-    if _displacement_bound(T, T_bin, corners) > margin:
-        qpool, qidx, nqf = rebin(T)
-        nq = torch.maximum(nq, nqf)
-    params = poolgrid.make_params(T, r2, grid)
-    d2, idxf = query(qpool, params, True)
-    ok, fit, rmse = _final_stats(d2, qidx, n_src, mesh)
-
-    idx_bin = torch.where(ok, idxf, rungrid.INVALID_INDEX)
-    idx_src = rungrid.scatter_to_source(qidx, idx_bin, Np,
-                                        rungrid.INVALID_INDEX)
-    return T, idx_src, fit, rmse, it, _psum(nq, mesh)
+    out = _grid_loop(grid_pass, est_type, n_src, mesh, src.shape[0], init_T,
+                     relative_fitness, relative_rmse, max_iteration)
+    return (*out, _psum(dropped, mesh))
 
 
 def icp_core_rungrid(src, src_mask, src_normals, grid: rungrid.RunGrid,
@@ -261,15 +301,10 @@ def icp_core_rungrid(src, src_mask, src_normals, grid: rungrid.RunGrid,
     idx [Np] int32 on the device (-1 none), fitness, rmse (0-d tensors
     on the device), iterations run). With `mesh`, src is this rank's
     shard, the grid is replicated and idx is local."""
-    Np = src.shape[0]
     est = _est_code(est_type)
     n_src = _n_source(src_mask, mesh)
     sym = est_type == TransformationEstimationType.SymmetricMethod
-    corners = trace.to_host(_aabb_corners(src, src_mask, mesh))
     r2 = torch.tensor(max_dist, dtype=torch.float32) ** 2
-    margin = float(np.float32(rebin_margin))
-    rel_fit = torch.tensor(relative_fitness, dtype=torch.float32)
-    rel_rmse = torch.tensor(relative_rmse, dtype=torch.float32)
 
     def rebin(T):
         pos = transform_points(T.to(src.device), src)
@@ -278,39 +313,21 @@ def icp_core_rungrid(src, src_mask, src_normals, grid: rungrid.RunGrid,
             extra=src_normals if sym else None, n_extra=3 if sym else 0,
             mask=src_mask)
 
-    T = torch.as_tensor(init_T, dtype=torch.float32).to(_HOST)
-    T_bin = T
-    qsoa, qidx = rebin(T)
-    fit = rmse = torch.tensor(-1.0)
-    it = 0
-    while it < max_iteration:
-        if _displacement_bound(T, T_bin, corners) > margin:
-            qsoa, qidx = rebin(T)
-            T_bin = T
-        params = rungrid.make_params(T, r2, grid)
-        sums = trace.to_host(_psum(rungrid_fused.fused_query(
-            grid, qsoa, qidx, params, est, False), mesh))
-        fit2, rmse2 = _stats_from_sums(est_type, sums, n_src)
-        converged = bool(((fit - fit2).abs() < rel_fit)
-                         & ((rmse - rmse2).abs() < rel_rmse)) and it > 0
-        it += 1
-        if converged:
-            break
-        T = _update_from_sums(est_type, sums) @ T
-        fit, rmse = fit2, rmse2
+    binned = _binning(rebin, src, src_mask, rebin_margin, mesh)
 
-    # final evaluation at the returned transform
-    if _displacement_bound(T, T_bin, corners) > margin:
-        qsoa, qidx = rebin(T)
-    params = rungrid.make_params(T, r2, grid)
-    d2, nidx = rungrid_fused.fused_query(grid, qsoa, qidx, params,
-                                         rungrid.EST_NONE, True)
-    ok, fit, rmse = _final_stats(d2, qidx, n_src, mesh)
-    idx_bin = torch.where(ok, -nidx, float(rungrid.INVALID_INDEX)) \
-        .to(torch.int32)
-    idx_src = rungrid.scatter_to_source(qidx, idx_bin, Np,
-                                        rungrid.INVALID_INDEX)
-    return T, idx_src, fit, rmse, it
+    def grid_pass(T, corres):
+        qsoa, qidx = binned(T)
+        params = rungrid.make_params(T, r2, grid)
+        if corres:   # at the returned pose: (d2, -index) a slot
+            d2, nidx = rungrid_fused.fused_query(
+                grid, qsoa, qidx, params, rungrid.EST_NONE, True)
+            return d2, (-nidx).to(torch.int32), qidx
+        return rungrid_fused.fused_query(grid, qsoa, qidx, params, est,
+                                         False)
+
+    return _grid_loop(grid_pass, est_type, n_src, mesh, src.shape[0],
+                      init_T, relative_fitness, relative_rmse,
+                      max_iteration)
 
 
 def icp_core_pool_ring(src, src_mask, src_aux, grid: poolgrid.PoolGrid,

@@ -2,7 +2,7 @@
 EvaluateRegistration, registration.cu).
 
 `registration_icp` takes, for every estimator, the branch the JAX
-package takes:
+package takes (`_choose_grid`):
 - targets of at most `_GRID_THRESHOLD` points: brute-force 1-NN in the
   generic loop (`_icp_core`);
 - larger targets: the pooled grid when its plan is accepted (all five
@@ -10,11 +10,13 @@ package takes:
   plan is accepted;
 - else the generic loop over the dense roll grid, the active-cell grid
   (both reduced by kernel 4), brute force up to `_BRUTE_FALLBACK_MAX`
-  target points, or the hash grid (`_choose_corres`).
-Colored ICP and GICP precompute their estimator inputs first: the
-target's colour gradient, or both clouds' covariances.
-`evaluate_registration` makes one correspondence pass: over the run
-grid above the threshold when its plan is accepted, else brute force.
+  target points, or the hash grid.
+Every branch then runs through one path: its loop, each a backend of
+`fused_icp.icp_loop`, then the result. Colored ICP and GICP precompute
+their estimator inputs first: the target's colour gradient, or both
+clouds' covariances. `evaluate_registration` makes one correspondence
+pass: over the run grid above the threshold when its plan is accepted,
+else brute force.
 """
 from __future__ import annotations
 
@@ -39,7 +41,6 @@ from .estimation import (
     solve_normal_system,
 )
 
-_HOST = torch.device("cpu")
 _ET = TransformationEstimationType
 
 
@@ -84,8 +85,6 @@ _GRID_THRESHOLD = 20000  # below this, brute-force 1-NN is faster than a grid
 _BRUTE_FALLBACK_MAX = 200_000
 _RUN_GRID_ESTIMATORS = (_ET.PointToPoint, _ET.PointToPlane,
                         _ET.SymmetricMethod)
-# the generic loop's `use_grid` as a branch of `registration_icp`
-_BRANCHES = {False: "brute", True: "hash"}
 
 
 def _prep(pcd, need_normals: bool):
@@ -100,15 +99,10 @@ def _prep(pcd, need_normals: bool):
     return pts, mask, normals
 
 
-def _host_float(x) -> float:
-    """A number, or a 0-d tensor read from its device."""
-    return float(trace.to_host(x)) if torch.is_tensor(x) else float(x)
-
-
 def _make_result(T, idx, fit, rmse, n_src):
     res = RegistrationResult(trace.to_host(T).numpy())
-    res.fitness = _host_float(fit)
-    res.inlier_rmse = _host_float(rmse)
+    res.fitness = float(trace.to_host(fit))
+    res.inlier_rmse = float(trace.to_host(rmse))
     idx = trace.to_host(idx[:n_src]).numpy()
     src_i = np.nonzero(idx >= 0)[0]
     res.correspondence_set = np.stack(
@@ -118,19 +112,15 @@ def _make_result(T, idx, fit, rmse, n_src):
 
 def _correspondence_fn(tgt, tgt_mask, max_dist, use_grid, grid, counts):
     """1-NN within max_dist for transformed source points: (idx, d2),
-    -1 / inf where none. `use_grid`: "roll" or "cell" (over `grid`),
-    True (a hash grid built here) or False (brute force, over the
-    prefixes `counts` = (source, target points) of the padded clouds)."""
-    if use_grid == "roll":
-        return lambda src_t: rollgrid.query_nn_rollgrid(grid, src_t,
-                                                        max_dist)
-    if use_grid == "cell":
-        return lambda src_t: cellgrid.query_nn_cellgrid(grid, src_t,
-                                                        max_dist)
-    if use_grid:
-        with trace.span("registration.build", branch="hash"):
-            hgrid = gridhash.build_grid(tgt, max_dist, mask=tgt_mask)
-        return lambda src_t: gridhash.query_nn(hgrid, src_t, max_dist)
+    -1 / inf where none. `use_grid` names the backend: "roll", "cell" or
+    "hash" (or True) over `grid`, or "brute" (or False), brute force over
+    the prefixes `counts` = (source, target points) of the padded
+    clouds."""
+    if use_grid not in ("brute", False):
+        query = {"roll": rollgrid.query_nn_rollgrid,
+                 "cell": cellgrid.query_nn_cellgrid}.get(use_grid,
+                                                         gridhash.query_nn)
+        return lambda src_t: query(grid, src_t, max_dist)
     r2 = torch.tensor(max_dist, dtype=torch.float32) ** 2
 
     def corres(src_t):
@@ -147,11 +137,12 @@ def _icp_core(src, src_mask, src_normals, tgt, tgt_mask, tgt_normals,
               init_T, max_dist, relative_fitness, relative_rmse,
               est_type: TransformationEstimationType, max_iteration: int,
               use_grid=False, aux=None, grid=None, *, counts):
-    """The generic ICP loop on the device of the clouds: correspondence
-    (`_correspondence_fn`), the estimator's normal system, a host solve
-    and the pose composition, then the convergence test. Each iteration
-    reads the system and the fitness statistics in one device-to-host
-    copy. `aux` carries Colored ICP's intensities, target gradient and
+    """The generic ICP loop on the device of the clouds: `icp_loop` over
+    correspondence (`_correspondence_fn`) and the estimator's normal
+    system, solved on the host. Each pass reads the system and the
+    fitness statistics in one device-to-host copy; the final evaluation
+    is the pass that converged, or one more pass when the iterations ran
+    out. `aux` carries Colored ICP's intensities, target gradient and
     square-rooted weights, or GICP's padded covariances. `counts`: the
     clouds' point counts (source, target), the prefixes their masks keep;
     brute force scores no padding.
@@ -161,8 +152,7 @@ def _icp_core(src, src_mask, src_normals, tgt, tgt_mask, tgt_normals,
     corres_fn = _correspondence_fn(tgt, tgt_mask, max_dist, use_grid, grid,
                                    counts)
     M = tgt.shape[0]
-    rel_fit = torch.tensor(relative_fitness, dtype=torch.float32)
-    rel_rmse = torch.tensor(relative_rmse, dtype=torch.float32)
+    n_src = fused_icp._n_source(src_mask, None)
 
     def eval_state(T):
         src_t = transform_points(T.to(dev), src)
@@ -193,60 +183,104 @@ def _icp_core(src, src_mask, src_normals, tgt, tgt_mask, tgt_normals,
         return normal_system(est_type, src_t, tgt[ti], tgt_normals[ti],
                              src_n, w)
 
-    with trace.span("registration.loop",
-                    branch=_BRANCHES.get(use_grid, use_grid)):
-        n_src = trace.to_host(
-            src_mask.sum().to(torch.float32).clamp(min=1.0))
-        T = torch.as_tensor(init_T, dtype=torch.float32).to(_HOST)
-        src_t, idx, ok, head = eval_state(T)
-        fit = rmse = None
-        it = 0
-        while True:
-            more = it < max_iteration
-            parts = [head, system(T, src_t, idx, ok)] if more else [head]
-            host = trace.to_host(torch.cat(parts))  # the iteration's read
-            cnt, err = host[0], host[1]
-            fit2 = cnt / n_src
-            rmse2 = torch.where(cnt > 0,
-                                torch.sqrt(err / cnt.clamp(min=1.0)), 0.0)
-            if fit is not None and bool(((fit - fit2).abs() < rel_fit)
-                                        & ((rmse - rmse2).abs() < rel_rmse)):
-                fit, rmse = fit2, rmse2
-                break
-            fit, rmse = fit2, rmse2
-            if not more:
-                break
-            T = solve_normal_system(est_type, host[2:]) @ T
-            it += 1
-            src_t, idx, ok, head = eval_state(T)
-    return T, idx, fit, rmse, it
+    last_idx = None
+
+    def step(T):
+        nonlocal last_idx
+        src_t, last_idx, ok, head = eval_state(T)
+        return trace.to_host(torch.cat([head,
+                                        system(T, src_t, last_idx, ok)]))
+
+    def final(T, stats):
+        if stats is not None:   # the pass that converged was at T
+            return (last_idx, *stats)
+        _, idx, _, head = eval_state(T)
+        host = trace.to_host(head)
+        return (idx, *fused_icp.fit_rmse(host[0], host[1], n_src))
+
+    T, (idx, fit, rmse), it, converged = fused_icp.icp_loop(
+        step, (0, 1), lambda sums: solve_normal_system(est_type, sums[2:]),
+        final, n_src, init_T, relative_fitness, relative_rmse, max_iteration)
+    # the JAX while_loop counts updates, the grid loops count passes: the
+    # pass that finds convergence makes no update
+    return T, idx, fit, rmse, it - converged
 
 
-def _choose_corres(target, tgt_padded, tgt_mask, max_dist):
-    """The generic loop's correspondence backend for `target`: brute
-    force for small targets, the dense roll grid for compact volumes,
-    the active-cell grid for sparse (surface) clouds, brute force up to
-    `_BRUTE_FALLBACK_MAX` points when both plans reject the target, the
-    hash grid beyond. Returns (use_grid, grid)."""
-    n = len(target)
-    if n <= _GRID_THRESHOLD:
-        return False, None
-    plan = rollgrid.plan_rollgrid(target.points, max_dist)
+def _choose_grid(target, tgt, tgt_mask, attrs, est_code, est_type, src_t,
+                 max_dist):
+    """The branch of `registration_icp` for a target above the grid
+    threshold, with its grid built: the pooled grid when its plan is
+    accepted; for PT2PT, PT2PL and SYM the run grid when only that plan
+    is; else the generic loop over the dense roll grid (compact volumes),
+    the active-cell grid (sparse, surface clouds), brute force up to
+    `_BRUTE_FALLBACK_MAX` target points, or the hash grid. `src_t`: the
+    source at the initial pose, the pool and run plans' queries.
+    Returns (branch, grid, plan, target points the pooled grid
+    dropped)."""
+    points = target.points
+    plan = poolgrid.plan_poolgrid(points, max_dist, query_points=src_t,
+                                  est=est_code)
+    if plan is not None:
+        return ("pool", *_build_pool(target, tgt, tgt_mask, attrs, est_code,
+                                     src_t, plan, max_dist))
+    if est_type in _RUN_GRID_ESTIMATORS:
+        plan = rungrid.plan_rungrid(points, max_dist, query_points=src_t,
+                                    nch=attrs.shape[1])
+        if plan is not None:
+            with trace.span("registration.build", branch="run"):
+                return "run", rungrid.make_rungrid(
+                    tgt, attrs, plan["origin"], plan["cell_size"],
+                    plan["dims"], plan["cap"], mask=tgt_mask, est=est_code,
+                    kc=plan["kc"]), plan, 0
+    plan = rollgrid.plan_rollgrid(points, max_dist)
     if plan is not None:
         with trace.span("registration.build", branch="roll"):
             return "roll", rollgrid.build_rollgrid(
-                tgt_padded, plan["origin"], plan["cell_size"], plan["dims"],
-                plan["cap"], mask=tgt_mask)
-    cplan = cellgrid.plan_cellgrid(target.points, max_dist)
-    if cplan is not None:
+                tgt, plan["origin"], plan["cell_size"], plan["dims"],
+                plan["cap"], mask=tgt_mask), plan, 0
+    plan = cellgrid.plan_cellgrid(points, max_dist)
+    if plan is not None:
         with trace.span("registration.build", branch="cell"):
             return "cell", cellgrid.build_cellgrid(
-                tgt_padded, cplan["origin"], cplan["cell_size"],
-                cplan["active"], cplan["dims"], cplan["cap"],
-                cplan["n_active"], mask=tgt_mask)
-    if n <= _BRUTE_FALLBACK_MAX:
-        return False, None
-    return True, None
+                tgt, plan["origin"], plan["cell_size"], plan["active"],
+                plan["dims"], plan["cap"], plan["n_active"],
+                mask=tgt_mask), plan, 0
+    if len(target) <= _BRUTE_FALLBACK_MAX:
+        return "brute", None, None, 0
+    with trace.span("registration.build", branch="hash"):
+        return "hash", gridhash.build_grid(tgt, max_dist,
+                                           mask=tgt_mask), None, 0
+
+
+def _build_pool(target, tgt, tgt_mask, attrs, est_code, src_t, plan,
+                max_dist):
+    """The pooled grid of `plan`, with one regrow of the cell capacity
+    when the planned cap drops too many targets. Returns (grid, plan,
+    target points dropped)."""
+
+    def build(plan):
+        with trace.span("registration.build", branch="pool"):
+            return poolgrid.make_poolgrid(
+                tgt, attrs, plan["origin"], plan["cell_size"], plan["dims"],
+                plan["cap"], plan["kc"], est=est_code, tile=plan["tile"],
+                mask=tgt_mask, active_cells=plan.get("active_cells"))
+
+    grid = build(plan)
+    nd_t = int(trace.to_host(grid.n_dropped))
+    if nd_t > max(64, 0.002 * len(target)):
+        # the drop-bounded cap lost a meaningful fraction of the target:
+        # retry once at the occupancy maximum before accepting it
+        console.log_warning(
+            "pool grid dropped %d target points; regrowing cell capacity",
+            nd_t)
+        regrown = poolgrid.plan_poolgrid(
+            target.points, max_dist, query_points=src_t, est=est_code,
+            cap_percentile=100.0)
+        if regrown is not None:
+            plan = regrown
+            grid = build(plan)
+            nd_t = int(trace.to_host(grid.n_dropped))
+    return grid, plan, nd_t
 
 
 def _pad_cov(cov, cap):
@@ -310,15 +344,6 @@ def registration_icp(
                                  init, estimation, criteria)
 
 
-def _traced_result(res: RegistrationResult, branch: str):
-    """`res`, with the branch taken and the iterations run set on the
-    `registration.icp` span and counted."""
-    trace.set_attrs(branch=branch, iterations=res.iterations)
-    trace.count(f"registration.branch.{branch}")
-    trace.count("registration.iterations", res.iterations)
-    return res
-
-
 def _registration_icp(source, target, max_correspondence_distance, init,
                       estimation, criteria):
     if max_correspondence_distance <= 0.0:
@@ -339,124 +364,64 @@ def _registration_icp(source, target, max_correspondence_distance, init,
     if est_type == _ET.SymmetricMethod and not source.has_normals():
         console.log_error("SymmetricMethod requires source normals.")
     max_dist = max_correspondence_distance
-    n_tgt = len(target)
     init_T = torch.eye(4, dtype=torch.float32) if init is None \
         else torch.as_tensor(np.asarray(init, np.float32))
     src, src_mask, src_normals = _prep(source, True)
     tgt, tgt_mask, tgt_normals = _prep(target, need_tgt_normals)
     aux = _estimator_aux(est_type, estimation, source, target, max_dist,
                          src.shape[0], tgt.shape[0])
-
-    def generic(use_grid, grid):
-        T, idx, fit, rmse, it = _icp_core(
-            src, src_mask, src_normals, tgt, tgt_mask, tgt_normals, init_T,
-            max_dist, criteria.relative_fitness, criteria.relative_rmse,
-            est_type, criteria.max_iteration, use_grid, aux=aux, grid=grid,
-            counts=(len(source), n_tgt))
-        console.log_debug("ICP finished after %s iterations", it)
-        res = _make_result(T, idx, fit, rmse, len(source))
-        res.iterations = it
-        return _traced_result(res, _BRANCHES.get(use_grid, use_grid))
-
-    if n_tgt <= _GRID_THRESHOLD:
-        return generic(False, None)
-
-    # the plans' queries: the source at the initial pose, on the device
-    src_t = transform_points(init_T.to(source.points.device), source.points)
-    tgt_aux, src_aux, extra_params = None, src_normals, (0.0, 0.0)
-    if est_type == _ET.ColoredICP:
-        tgt_aux = {"intensity": aux["tgt_intensity"],
-                   "gradient": aux["tgt_color_gradient"]}
-        src_aux = aux["src_intensity"][:, None]
-        extra_params = (aux["sqrt_lambda_geometric"],
-                        aux["sqrt_lambda_photometric"])
-    elif est_type == _ET.GeneralizedICP:
-        tgt_aux = {"cov": aux["tgt_cov"]}
-        src_aux = fused_icp.cov_upper6(aux["src_cov"])
-    attrs, est_code = fused_icp.make_target_attrs(
-        est_type, tgt, tgt_normals, tgt_aux)
-    pplan = poolgrid.plan_poolgrid(target.points, max_dist,
-                                   query_points=src_t, est=est_code)
-    if pplan is not None:
-        return _registration_icp_pool(
-            source, target, src, src_mask, src_aux, tgt, tgt_mask, attrs,
-            est_code, src_t, pplan, init_T, max_dist, est_type, criteria,
-            extra_params)
-    if est_type in _RUN_GRID_ESTIMATORS:
-        plan = rungrid.plan_rungrid(target.points, max_dist,
-                                    query_points=src_t, nch=attrs.shape[1])
-        if plan is not None:
-            return _registration_icp_rungrid(
-                source, src, src_mask, src_normals, tgt, tgt_mask, attrs,
-                est_code, plan, init_T, max_dist, est_type, criteria)
-    return generic(*_choose_corres(target, tgt, tgt_mask, max_dist))
-
-
-def _registration_icp_pool(source, target, src, src_mask, src_aux, tgt,
-                           tgt_mask, attrs, est_code, src_t, pplan, init_T,
-                           max_dist, est_type, criteria, extra_params):
-    """The pooled-grid branch of `registration_icp`, with one regrow of
-    the cell capacity when the planned cap drops too many targets."""
-
-    def build(plan):
-        with trace.span("registration.build", branch="pool"):
-            return poolgrid.make_poolgrid(
-                tgt, attrs, plan["origin"], plan["cell_size"], plan["dims"],
-                plan["cap"], plan["kc"], est=est_code, tile=plan["tile"],
-                mask=tgt_mask, active_cells=plan.get("active_cells"))
-
-    grid = build(pplan)
-    nd_t = int(trace.to_host(grid.n_dropped))
-    if nd_t > max(64, 0.002 * len(target)):
-        # the drop-bounded cap lost a meaningful fraction of the target:
-        # retry once at the occupancy maximum before accepting it
-        console.log_warning(
-            "pool grid dropped %d target points; regrowing cell capacity",
-            nd_t)
-        regrown = poolgrid.plan_poolgrid(
-            target.points, max_dist, query_points=src_t, est=est_code,
-            cap_percentile=100.0)
-        if regrown is not None:
-            pplan = regrown
-            grid = build(pplan)
-            nd_t = int(trace.to_host(grid.n_dropped))
-    with trace.span("registration.loop", branch="pool"):
-        T, idx, fit, rmse, it, nq_drop = fused_icp.icp_core_pool(
-            src, src_mask, src_aux, grid, init_T, max_dist,
-            pplan["rebin_margin"], criteria.relative_fitness,
-            criteria.relative_rmse, pplan["qp"], est_type,
-            criteria.max_iteration, extra_params=extra_params)
-    console.log_debug("pooled ICP finished after %s iterations", it)
-    res = _make_result(T, idx, fit, rmse, len(source))
-    res.n_dropped_target = nd_t
-    res.n_dropped_queries = int(trace.to_host(nq_drop))
-    res.iterations = it
-    if res.n_dropped_queries:
-        console.log_warning("pool query binning dropped %d source points",
-                            res.n_dropped_queries)
-    return _traced_result(res, "pool")
-
-
-def _registration_icp_rungrid(source, src, src_mask, src_normals, tgt,
-                              tgt_mask, attrs, est_code, plan, init_T,
-                              max_dist, est_type, criteria):
-    """The run-grid branch of `registration_icp` (PT2PT, PT2PL, SYM), for
-    targets whose pool plan is rejected (pool cells that would need a
-    cap above 128)."""
-    with trace.span("registration.build", branch="run"):
-        grid = rungrid.make_rungrid(
-            tgt, attrs, plan["origin"], plan["cell_size"], plan["dims"],
-            plan["cap"], mask=tgt_mask, est=est_code, kc=plan["kc"])
-    with trace.span("registration.loop", branch="run"):
-        T, idx, fit, rmse, it = fused_icp.icp_core_rungrid(
-            src, src_mask, src_normals, grid, init_T, max_dist,
-            plan["rebin_margin"], criteria.relative_fitness,
-            criteria.relative_rmse, plan["qcap"], est_type,
-            criteria.max_iteration)
-    console.log_debug("run-grid ICP finished after %s iterations", it)
+    branch, grid, plan, nd_t = "brute", None, None, 0
+    src_aux, extra_params = src_normals, (0.0, 0.0)
+    if len(target) > _GRID_THRESHOLD:
+        src_t = transform_points(init_T.to(source.points.device),
+                                 source.points)
+        tgt_aux = None
+        if est_type == _ET.ColoredICP:
+            tgt_aux = {"intensity": aux["tgt_intensity"],
+                       "gradient": aux["tgt_color_gradient"]}
+            src_aux = aux["src_intensity"][:, None]
+            extra_params = (aux["sqrt_lambda_geometric"],
+                            aux["sqrt_lambda_photometric"])
+        elif est_type == _ET.GeneralizedICP:
+            tgt_aux = {"cov": aux["tgt_cov"]}
+            src_aux = fused_icp.cov_upper6(aux["src_cov"])
+        attrs, est_code = fused_icp.make_target_attrs(
+            est_type, tgt, tgt_normals, tgt_aux)
+        branch, grid, plan, nd_t = _choose_grid(
+            target, tgt, tgt_mask, attrs, est_code, est_type, src_t,
+            max_dist)
+    rel = (criteria.relative_fitness, criteria.relative_rmse)
+    with trace.span("registration.loop", branch=branch):
+        if branch == "pool":
+            T, idx, fit, rmse, it, nq_drop = fused_icp.icp_core_pool(
+                src, src_mask, src_aux, grid, init_T, max_dist,
+                plan["rebin_margin"], *rel, plan["qp"], est_type,
+                criteria.max_iteration, extra_params=extra_params)
+        elif branch == "run":
+            T, idx, fit, rmse, it = fused_icp.icp_core_rungrid(
+                src, src_mask, src_normals, grid, init_T, max_dist,
+                plan["rebin_margin"], *rel, plan["qcap"], est_type,
+                criteria.max_iteration)
+        else:
+            T, idx, fit, rmse, it = _icp_core(
+                src, src_mask, src_normals, tgt, tgt_mask, tgt_normals,
+                init_T, max_dist, *rel, est_type, criteria.max_iteration,
+                branch, aux=aux, grid=grid,
+                counts=(len(source), len(target)))
+    console.log_debug("%s ICP finished after %s iterations", branch, it)
     res = _make_result(T, idx, fit, rmse, len(source))
     res.iterations = it
-    return _traced_result(res, "run")
+    if branch == "pool":
+        res.n_dropped_target = nd_t
+        res.n_dropped_queries = int(trace.to_host(nq_drop))
+        if res.n_dropped_queries:
+            console.log_warning("pool query binning dropped %d source "
+                                "points", res.n_dropped_queries)
+    # on the `registration.icp` span, and counted
+    trace.set_attrs(branch=branch, iterations=it)
+    trace.count(f"registration.branch.{branch}")
+    trace.count("registration.iterations", it)
+    return res
 
 
 def evaluate_registration(source, target,
@@ -485,12 +450,8 @@ def evaluate_registration(source, target,
                 grid, transform_points(T.to(src.device), src),
                 max_correspondence_distance, plan["qcap"],
                 query_mask=src_mask)
-            ok = idx >= 0
-            cnt, err = torch.stack([ok.sum().to(torch.float32),
-                                    torch.where(ok, d2, 0.0).sum()]) \
-                .to(_HOST).numpy()
-            fit = float(cnt) / max(len(source), 1)
-            rmse = float(np.sqrt(err / cnt)) if cnt else 0.0
+            n_src = torch.tensor(max(len(source), 1), dtype=torch.float32)
+            _, fit, rmse = fused_icp._final_stats(d2, idx, n_src, None)
             return _make_result(T, idx, fit, rmse, len(source))
     zeros = torch.zeros_like(src)
     T_out, idx, fit, rmse, _ = _icp_core(

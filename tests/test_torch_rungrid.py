@@ -324,10 +324,15 @@ def test_torch_rungrid_wrappers_check_inputs(rng):
     sums = rungrid_fused.fused_query(gt, qs, qi, p, trg.EST_PT2PL, False)
     mom = rungrid_gmm.gmm_pass(gt, qs, qi, p)
     assert (dict(rungrid_fused.launches), rungrid_gmm.launches) == before
+    # the plain versions again in chunks of `step` cells (the whole grid
+    # is one chunk above): at least 3 chunks, the last one ragged
+    cp, qcap = qs.shape[0], qs.shape[2]
+    step = cp // 4 + 1
+    assert cp // step >= 3 and cp % step and step > 1
     olds = rungrid_fused._PLAIN_CHUNK_BYTES, rungrid_gmm._PLAIN_CHUNK_BYTES
     try:
-        rungrid_fused._PLAIN_CHUNK_BYTES = 1
-        rungrid_gmm._PLAIN_CHUNK_BYTES = 1
+        rungrid_fused._PLAIN_CHUNK_BYTES = step * qcap * gt.kc * 4
+        rungrid_gmm._PLAIN_CHUNK_BYTES = step * qcap * gt.kc * 4
         one = rungrid_fused.fused_query(gt, qs, qi, p, trg.EST_NONE, True)
         sums1 = rungrid_fused.fused_query(gt, qs, qi, p, trg.EST_PT2PL,
                                           False)

@@ -203,11 +203,13 @@ def test_torch_trace_environment_variable_writes_the_file(tmp_path):
 
 
 def _rigid_pair(branch):
-    """A target above the grid threshold with normals and a source 0.01
-    rad and a few mm away: 24k points in the unit cube (the pooled grid),
-    or 30k in [0, 0.43]^3 (every pool cell over its cap: the run grid)."""
+    """A target with normals and a source 0.01 rad and a few mm away: 24k
+    points in the unit cube (the pooled grid), 30k in [0, 0.43]^3 (every
+    pool cell over its cap: the run grid), or 3000 in [0, 0.2]^3 (under
+    the grid threshold: brute force)."""
     rng = np.random.default_rng(7)
-    m, scale = (24000, 1.0) if branch == "pool" else (30000, 0.43)
+    m, scale = {"pool": (24000, 1.0), "run": (30000, 0.43),
+                "brute": (3000, 0.2)}[branch]
     tgt = rng.uniform(size=(m, 3)).astype(np.float32) * scale
     tn = rng.normal(size=(m, 3)).astype(np.float32)
     tn /= np.linalg.norm(tn, axis=1, keepdims=True)
@@ -228,13 +230,14 @@ def _icp(source, target):
         criteria=ctt.registration.ICPConvergenceCriteria(max_iteration=4))
 
 
-@pytest.mark.parametrize("branch", ["pool", "run"])
+@pytest.mark.parametrize("branch", ["pool", "run", "brute"])
 def test_torch_trace_registration_icp_spans(branch):
-    """`registration.icp` holds the plans, the build and the loop; the
-    iterations counted equal the result's, one branch is counted, and
-    the result is bit-identical with tracing off."""
+    """`registration.icp` holds the plans, the build and the loop (brute
+    force: the loop alone); the iterations counted equal the result's,
+    one branch is counted, and the result is bit-identical with tracing
+    off."""
     source, target = _rigid_pair(branch)
-    assert len(target) > regmod._GRID_THRESHOLD
+    assert (len(target) > regmod._GRID_THRESHOLD) == (branch != "brute")
     off = _icp(source, target)
     trace.enable(reset=True)
     on = _icp(source, target)
@@ -255,7 +258,9 @@ def test_torch_trace_registration_icp_spans(branch):
     kids = _children(sp, root)
     plans = [s.attrs for s in kids if s.name == "knn.plan"]
     # each plan reads the cloud's bounds, then its statistics
-    if branch == "pool":
+    if branch == "brute":
+        assert plans == []
+    elif branch == "pool":
         assert plans == [{"planner": "pool", "device": "cpu",
                           "accepted": True, "reads": 2}]
     else:
@@ -263,13 +268,15 @@ def test_torch_trace_registration_icp_spans(branch):
                           "accepted": False, "reads": 2},
                          {"planner": "run", "device": "cpu",
                           "accepted": True, "reads": 2}]
-    assert [s.attrs for s in kids if s.name == "registration.build"] \
-        == [{"branch": branch}]
-    (loop,) = [s for s in kids if s.name == "registration.loop"]
-    assert loop.attrs == {"branch": branch}
-    names = [s.name for s in kids]
-    assert names.index("registration.build") < names.index(
-        "registration.loop")
+    builds = [s for s in sp if s.name == "registration.build"]
+    (loop,) = [s for s in sp if s.name == "registration.loop"]
+    assert loop.parent == root.index and loop.attrs == {"branch": branch}
+    if branch == "brute":
+        assert builds == [] and not any(s.name == "knn.plan" for s in sp)
+    else:
+        assert [(s.parent, s.attrs) for s in builds] \
+            == [(root.index, {"branch": branch})]
+        assert builds[0].end_ns <= loop.start_ns
     # one read of the sums an iteration, plus the source count and box
     loop_reads = [s for s in _children(sp, loop) if s.name == "host.read"]
     assert len(loop_reads) == on.iterations + 2

@@ -197,6 +197,19 @@ BF_OPS_PER_PAIR = 8
 # largest brute-force level) and 3 (80x60, few query blocks: the points
 # are split over many)
 BF_LEVELS = (1, 3)
+# the raycast kernel (csrc/tsdf_raycast.cu) is held at KinFu's four level
+# shapes on its 512^3 volume, integrated from the trajectory's first
+# RAYCAST_FRAMES frames and seen from the next frame's pose; its bound
+# counts the bytes a ray needs: 4 B a march step, 20 B of its set-up
+# (direction, entry and exit time), for a march hit the refinement's 6
+# samples of 8 corners of tsdf and weight, for a final hit the
+# gradient's 6 samples of 8 tsdf corners and 12 B of colour, and 40 B
+# of outputs
+RAYCAST_LEVELS = (0, 1, 2, 3)
+RAYCAST_FRAMES = 3
+RAYCAST_RAY_BYTES = 20 + 40
+RAYCAST_REFINE_BYTES = 6 * 8 * 8
+RAYCAST_HIT_BYTES = 6 * 8 * 4 + 12
 
 N_POINTS = 1_000_000
 RADIUS = 0.05
@@ -4910,6 +4923,150 @@ def check_bruteforce_nn(np, torch, bruteforce, nvcc, level, q, d, mask, nq,
             "bound_by": bound_by, "issue_ms": issue_ms}
 
 
+def raycast_volume(np, torch, ctt, dev):
+    """KinFu's volume (`kinfu_config`) on `dev`, integrated from the
+    trajectory's first RAYCAST_FRAMES frames at their true poses, and
+    the 640x480 intrinsics."""
+    intr, opt = kinfu_config(ctt)
+    vol = ctt.integration.UniformTSDFVolume(
+        opt.tsdf_length, opt.tsdf_resolution, opt.sdf_trunc,
+        opt.tsdf_color_type, opt.tsdf_origin, device=dev)
+    for k in range(RAYCAST_FRAMES):
+        c, d = room_frame(np, ctt, k, intr, dev)
+        vol.integrate(ctt.geometry.RGBDImage.create_from_color_and_depth(
+            c, d, convert_rgb_to_intensity=False), intr,
+            np.linalg.inv(rgbd_pose(np, k)).astype(np.float32))
+    return vol, intr
+
+
+def raycast_args(np, torch, vol, intr, pose, max_steps=None):
+    """`tsdf_ops.raycast`'s arguments for `vol` seen through `intr` from
+    the camera-to-world `pose`, as `UniformTSDFVolume.raycast` and KinFu
+    make them (max_steps None: the volume's own count)."""
+    extrinsic = np.linalg.inv(pose).astype(np.float32)
+    cam = np.linalg.inv(extrinsic).astype(np.float32)
+    if max_steps is None:
+        max_steps = int(np.ceil(vol.length * np.sqrt(3.0)
+                                / (0.5 * vol.sdf_trunc))) + 1
+    return (vol.tsdf, vol.weight, vol.color,
+            torch.as_tensor(np.asarray(intr.intrinsic_matrix, np.float32),
+                            device=vol.device),
+            torch.as_tensor(cam, device=vol.device), vol.voxel_length,
+            vol.sdf_trunc, vol._corner(), intr.height, intr.width,
+            max_steps)
+
+
+def raycast_equal(torch, got, want):
+    """Whether two raycasts' points, normals and colours are equal bit
+    for bit (NaN where there is no hit, so compared as int32) and their
+    steps equal."""
+    return got[3] == want[3] and all(
+        torch.equal(g.view(torch.int32), w.view(torch.int32))
+        for g, w in zip(got[:3], want[:3]))
+
+
+def march_work(torch, tsdf_ops, args):
+    """(march steps over every ray, rays the march finds a hit on, the
+    steps the plain march reports) of raycast arguments `args`: each ray
+    counted up to its own stop under `raycast_plain`'s march rule, for
+    the raycast's byte count."""
+    tsdf, _, _, K, cam, vl, trunc, origin, H, W, max_steps = args
+    R = tsdf.shape[0]
+    dirs, _, rel_o, _, inv_vl, t_far, ray0, step = tsdf_ops._rays(
+        K, cam, vl, trunc, origin, R, H, W)
+    flat = tsdf.reshape(-1)
+
+    def nearest(s):
+        gi = torch.floor((rel_o + dirs * s[..., None]) * inv_vl) \
+            .to(torch.int64)
+        inb = ((gi >= 1) & (gi < R - 1)).all(-1)
+        gi = gi.clamp(0, R - 1)
+        return flat[(gi[..., 0] * R + gi[..., 1]) * R + gi[..., 2]], inb
+
+    f, inb = nearest(ray0)
+    f = torch.where(inb, f, 0.0)
+    stopped = torch.zeros((H, W), dtype=torch.bool, device=tsdf.device)
+    found = torch.zeros_like(stopped)
+    taken = torch.zeros((H, W), dtype=torch.int64, device=tsdf.device)
+    slowest = max_steps + 1
+    for i in range(max_steps):
+        ray_len = ray0 + float(i) * step
+        f_new, inb = nearest(ray_len + step)
+        taken += ~stopped
+        live_in = ~stopped & inb
+        hit = live_in & (f > 0.0) & (f_new < 0.0)
+        found |= hit
+        stopped |= hit | (live_in & (f < 0.0) & (f_new > 0.0)) \
+            | (ray_len >= t_far)
+        f = torch.where(inb, f_new, f)
+        if bool(stopped.all()):
+            slowest = i + 1
+            break
+    return (int(taken.sum()), int(found.sum()),
+            tsdf_ops.march_steps(slowest, max_steps))
+
+
+def check_tsdf_raycast(np, torch, ctt, tsdf_ops, nvcc, dev):
+    """The raycast kernel against raycast_plain on the same card tensors,
+    bit for bit, at KinFu's four level shapes on `raycast_volume`; then
+    at each level the kernel's time alone, the wrapper's (set-up, the
+    launch, the 4-byte read and the tail), the plain version's, and the
+    bound of this run's bytes. Returns a record a level."""
+    vol, intr = raycast_volume(np, torch, ctt, dev)
+    pose = rgbd_pose(np, RAYCAST_FRAMES)
+    recs = []
+    for level in RAYCAST_LEVELS:
+        args = raycast_args(np, torch, vol, intr.scale(0.5 ** level), pose)
+        before = tsdf_ops.launches
+        got = tsdf_ops.raycast(*args)
+        want = tsdf_ops.raycast_plain(*args)
+        torch.cuda.synchronize()
+        if tsdf_ops.launches != before + 1:
+            raise AssertionError(f"tsdf_raycast level {level}: "
+                                 f"{tsdf_ops.launches - before} launches")
+        if not raycast_equal(torch, got, want):
+            differ = [int((g.view(torch.int32) != w.view(torch.int32))
+                          .any(-1).sum()) for g, w in zip(got[:3], want[:3])]
+            raise AssertionError(
+                f"tsdf_raycast level {level}: steps {got[3]} / {want[3]}; "
+                f"points, normals, colours differ on {differ} rays")
+        taken, march_hits, steps = march_work(torch, tsdf_ops, args)
+        if steps != got[3]:
+            raise AssertionError(f"tsdf_raycast level {level}: the march "
+                                 f"rule gives {steps} steps, the kernel "
+                                 f"{got[3]}")
+        hits = int(torch.isfinite(got[0]).all(-1).sum())
+        H, W = args[8], args[9]
+        rays = tsdf_ops._rays(*args[3:8], vol.resolution, H, W)
+        ms = _time_ms(torch, lambda: tsdf_ops._launch(
+            vol.tsdf, vol.weight, vol.color, rays, args[7], args[10]),
+            TIMED_LAUNCHES)
+        wrapper_ms = _time_ms(torch, lambda: tsdf_ops.raycast(*args),
+                              TIMED_LAUNCHES)
+        plain_ms = _time_ms(torch, lambda: tsdf_ops.raycast_plain(*args), 3)
+        n_bytes = (4 * taken + RAYCAST_REFINE_BYTES * march_hits
+                   + RAYCAST_HIT_BYTES * hits + RAYCAST_RAY_BYTES * H * W)
+        bound_ms, bound_by = _bound(n_bytes, 0)
+        ptxas = " | ".join(ln.strip().replace("ptxas info    : ", "")
+                           for ln in nvcc.build_logs.get("tsdf_raycast", "")
+                           .splitlines() if "Used" in ln or "spill" in ln) \
+            or "cached"
+        print(f"kernel[tsdf_raycast level {level}]: {W}x{H} rays on a "
+              f"{vol.resolution}^3 volume, {hits} hits ({march_hits} in the "
+              f"march), {taken / (H * W):.1f} march steps a ray, {steps} "
+              f"steps reported; bit for bit with raycast_plain; kernel "
+              f"{ms:.4f} ms, wrapper {wrapper_ms:.4f} ms, plain "
+              f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+              f"({n_bytes / 1e6:.2f} MB); ptxas: {ptxas}")
+        recs.append({"level": level, "rays": H * W, "hits": hits,
+                     "march_steps": taken, "steps": steps,
+                     "max_abs_err": 0.0, "ms": ms, "wrapper_ms": wrapper_ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by})
+    del vol
+    return recs
+
+
 def grid_cache_report(rungrid, phase):
     """Print what the k-NN grid cache (`knn_search_grid`) did in `phase`
     in this process, then start the next phase's count."""
@@ -4932,6 +5089,7 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this run needs an NVIDIA GPU")
     import cupoch_tpu_torch as ctt
+    from cupoch_tpu_torch.integration import tsdf_ops
     from cupoch_tpu_torch.knn import (bruteforce, poolgrid, poolgrid_slot,
                                       rollgrid, rollgrid_nn, rungrid,
                                       rungrid_fused, rungrid_gmm)
@@ -5053,6 +5211,8 @@ def main():
     bf_recs = [check_bruteforce_nn(np, torch, bruteforce, nvcc, *case,
                                    card_clock)
                for case in bruteforce_cases(np, torch, dev)]
+    # 3g. the raycast kernel at KinFu's four level shapes
+    rc_recs = check_tsdf_raycast(np, torch, ctt, tsdf_ops, nvcc, dev)
     roll_plan = rollgrid.plan_rollgrid(ftgt, RADIUS)
     sheet, sheet_n = _sheet(np)
     sheet_src = sheet + np.float32(SHEET_SHIFT)
@@ -5350,6 +5510,22 @@ def main():
         "levels": {r["level"]: {k: r[k] for k in (
             "queries", "points", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by", "issue_ms")} for r in bf_recs},
+    }, {
+        "name": "tsdf_raycast",
+        "route": "cuda",
+        "source": "cupoch_tpu_torch/csrc/tsdf_raycast.cu",
+        # the JAX package's raycast is a lax.while_loop of XLA ops
+        "replaces": None,
+        "launches": total["tsdf_raycast"],
+        "max_abs_err": max(r["max_abs_err"] for r in rc_recs),
+        "ms": rc_recs[0]["ms"],
+        "plain_ms": rc_recs[0]["plain_ms"],
+        "bound_ms": rc_recs[0]["bound_ms"],
+        "bound_by": rc_recs[0]["bound_by"],
+        "library_ms": None,
+        "levels": {r["level"]: {k: r[k] for k in (
+            "rays", "hits", "march_steps", "steps", "ms", "wrapper_ms",
+            "plain_ms", "bound_ms", "bound_by")} for r in rc_recs},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

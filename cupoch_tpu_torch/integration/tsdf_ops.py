@@ -8,30 +8,36 @@ integration/integrate_functor.h, uniform_tsdfvolume.cu).
   block table, in chunks.
 - `surface_crossings`: the zero crossings between neighbouring voxels.
 - `raycast`: a march of nearest-voxel samples for every pixel, then a
-  trilinear refinement of the crossing, normals and colours.
+  trilinear refinement of the crossing, normals and colours; on the
+  card one thread a ray in the hand-written kernel
+  `csrc/tsdf_raycast.cu`, on the CPU `raycast_plain`.
 - `mc_classify_blocks`, `mc_compact`, `mc_emit_blocks`: marching cubes
   on the device at a fixed capacity.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Tuple
 
 import numpy as np
 import torch
 
-from ..utility import trace
+from ..utility import nvcc, trace
 from . import marching_cubes_tables as mct
 
 #: voxels a slab of `integrate` holds at most (its temporaries are a few
 #: tensors of this many elements)
 SLAB_VOXELS = 1 << 23
-#: the raycast tests whether every ray has stopped once every this many
-#: steps (one host read each time)
+#: the plain raycast tests whether every ray has stopped once every this
+#: many steps (one host read each time)
 STOP_CHECK_STEPS = 16
 #: the raycast refines a crossing up to this many steps past the step
 #: where the march found it
 REFINE_STEPS = 4
+
+#: `raycast` kernel launches since the count was last set to 0
+launches = 0
 
 
 def _f32(x, device) -> torch.Tensor:
@@ -213,22 +219,24 @@ def _gather3(vol, gi) -> torch.Tensor:
     return vol.reshape((R * R * R,) + vol.shape[3:])[flat]
 
 
-def raycast(tsdf, weight, color_vol, K, cam_to_world, voxel_length,
-            sdf_trunc, origin, H: int, W: int, max_steps: int):
-    """The model seen from `cam_to_world` (cupoch raycast_tsdf_functor):
-    one nearest-voxel sample a step of sdf_trunc / 2 from each ray's
-    entry into the grid, stopping a ray at a +/- crossing (a hit), a -/+
-    crossing (a back face) or its exit; unobserved voxels hold 0 and
-    never cross. A hit's crossing is then refined between trilinear
-    samples that must see observed voxels only; its normal is the
-    trilinear gradient and its colour the nearest voxel's. The march
-    ends after `max_steps`, or earlier once every ray has stopped
-    (tested every STOP_CHECK_STEPS steps: a stopped ray's hit and
-    crossing never change; counted in `tsdf.stop_checks`, the steps in
-    `tsdf.march_steps`). Returns ([H*W, 3] points, normals, colours),
-    NaN where there is no hit, and the steps the march took."""
-    dev = tsdf.device
-    R = tsdf.shape[0]
+def march_steps(slowest: int, max_steps: int) -> int:
+    """The steps the plain march reports when its slowest ray stops
+    after `slowest` steps (max_steps + 1 where one never stops): it
+    tests every STOP_CHECK_STEPS steps whether every ray has stopped,
+    and ends at max_steps at the latest. An empty image stops at the
+    first test."""
+    checks = max(1, -(-slowest // STOP_CHECK_STEPS))
+    return min(max_steps, STOP_CHECK_STEPS * checks)
+
+
+def _rays(K, cam_to_world, voxel_length, sdf_trunc, origin, R: int,
+          H: int, W: int):
+    """Each pixel's ray, shared by both raycasts: (dirs [H, W, 3] unit
+    world directions, the camera centre o [3], rel_o = o - origin, the
+    voxel length vl, 1 / vl, each ray's exit time t_far and first sample
+    time ray0 [H, W], the step sdf_trunc / 2), scalars as 0-d tensors on
+    the grid's device."""
+    dev = K.device
     fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
     vv, uu = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=dev),
                             torch.arange(W, dtype=torch.float32, device=dev),
@@ -252,6 +260,119 @@ def raycast(tsdf, weight, color_vol, K, cam_to_world, voxel_length,
     t_far = torch.maximum(t_a, t_b).amin(-1)
     ray0 = t_near.clamp(min=0.0) + vl
     step = _f32(sdf_trunc, dev) * 0.5
+    return dirs, o, rel_o, vl, inv_vl, t_far, ray0, step
+
+
+def _finish(pts, n, colors, found):
+    """The rays' outputs as both raycasts return them: the gradient n
+    normalised, NaN where there is no hit, [H*W, 3] each."""
+    n = n / torch.linalg.norm(n, dim=-1, keepdim=True).clamp(min=1e-12)
+    keep = found[..., None]
+    return (torch.where(keep, pts, math.nan).reshape(-1, 3),
+            torch.where(keep, n, math.nan).reshape(-1, 3),
+            torch.where(keep, colors, math.nan).reshape(-1, 3))
+
+
+def raycast(tsdf, weight, color_vol, K, cam_to_world, voxel_length,
+            sdf_trunc, origin, H: int, W: int, max_steps: int):
+    """The model seen from `cam_to_world` (cupoch raycast_tsdf_functor),
+    as `raycast_plain` computes it, bit for bit. On CUDA tensors each
+    ray's march and refinement run in the hand-written kernel
+    `csrc/tsdf_raycast.cu` (counted in `launches`), one thread a ray,
+    and the only read is the slowest ray's steps; on CPU tensors this is
+    `raycast_plain`. A CUDA tensor launches the kernel or raises: there
+    is no fallback. The steps are `march_steps` of the slowest ray's,
+    what the plain march reports; counted in `tsdf.march_steps` (the
+    kernel makes no stop tests). Returns ([H*W, 3] points, normals,
+    colours), NaN where there is no hit, and the steps."""
+    dev = tsdf.device
+    if dev.type == "cpu":
+        return raycast_plain(tsdf, weight, color_vol, K, cam_to_world,
+                             voxel_length, sdf_trunc, origin, H, W,
+                             max_steps)
+    if dev.type != "cuda":
+        raise ValueError(f"raycast runs on cuda or cpu, not {dev}")
+    R = tsdf.shape[0]
+    for name, t, shape in (("tsdf", tsdf, (R, R, R)),
+                           ("weight", weight, (R, R, R)),
+                           ("color_vol", color_vol, (R, R, R, 3))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape \
+                or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"raycast takes a contiguous float32 {name} "
+                             f"of shape {shape} on {dev}, not "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    for name, t, shape in (("K", K, (3, 3)),
+                           ("cam_to_world", cam_to_world, (4, 4)),
+                           ("origin", origin, (3,))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape \
+                or t.device != dev:
+            raise ValueError(f"raycast takes a float32 {name} of shape "
+                             f"{shape} on {dev}")
+    if not (3 <= R and R ** 3 < 1 << 31 and 0 <= max_steps < 1 << 24
+            and H >= 0 and W >= 0 and REFINE_STEPS >= 1):
+        raise ValueError(f"raycast takes 3 <= R < 1291, 0 <= max_steps < "
+                         f"2^24 and REFINE_STEPS >= 1, not R {R}, max_steps "
+                         f"{max_steps}, REFINE_STEPS {REFINE_STEPS}")
+    rays = _rays(K, cam_to_world, voxel_length, sdf_trunc, origin, R, H, W)
+    pts, n, colors, found, slowest = _launch(tsdf, weight, color_vol, rays,
+                                             origin, max_steps)
+    steps = march_steps(int(trace.to_host(slowest)[0]), max_steps)
+    trace.count("tsdf.march_steps", steps)
+    return _finish(pts, n, colors, found) + (steps,)
+
+
+def _launch(tsdf, weight, color_vol, rays, origin, max_steps: int):
+    """One launch of the kernel on checked CUDA tensors and the rays of
+    `_rays`: (points, unnormalised gradients, colours [H, W, 3], hit
+    flags [H, W], and the slowest ray's steps [1] int32 on the card)."""
+    global launches
+    dirs, o, rel_o, vl, inv_vl, t_far, ray0, step = rays
+    dev = tsdf.device
+    R = tsdf.shape[0]
+    H, W = ray0.shape
+    params = torch.cat([o, origin, rel_o, torch.stack([vl, inv_vl, step])])
+    dirs, t_far, ray0 = (t.contiguous() for t in (dirs, t_far, ray0))
+    pts = torch.empty((H, W, 3), dtype=torch.float32, device=dev)
+    n = torch.empty_like(pts)
+    colors = torch.empty_like(pts)
+    found = torch.empty((H, W), dtype=torch.bool, device=dev)
+    slowest = torch.empty(1, dtype=torch.int32, device=dev)
+    lib = nvcc.load("tsdf_raycast")
+    fn = lib.tsdf_raycast_launch
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(tsdf.data_ptr(), weight.data_ptr(), color_vol.data_ptr(),
+                 dirs.data_ptr(), ray0.data_ptr(), t_far.data_ptr(),
+                 params.data_ptr(), pts.data_ptr(), n.data_ptr(),
+                 colors.data_ptr(), found.data_ptr(), slowest.data_ptr(),
+                 H, W, R, max_steps, REFINE_STEPS, stream)
+    if err != 0:
+        raise RuntimeError(f"tsdf_raycast launch failed: CUDA error {err}")
+    launches += 1
+    return pts, n, colors, found, slowest
+
+
+def raycast_plain(tsdf, weight, color_vol, K, cam_to_world, voxel_length,
+                  sdf_trunc, origin, H: int, W: int, max_steps: int):
+    """Plain PyTorch version of `raycast`'s kernel, on any device: one
+    nearest-voxel sample a step of sdf_trunc / 2 from each ray's entry
+    into the grid, stopping a ray at a +/- crossing (a hit), a -/+
+    crossing (a back face) or its exit; unobserved voxels hold 0 and
+    never cross. A hit's crossing is then refined between trilinear
+    samples that must see observed voxels only; its normal is the
+    trilinear gradient and its colour the nearest voxel's. The march
+    ends after `max_steps`, or earlier once every ray has stopped
+    (tested every STOP_CHECK_STEPS steps: a stopped ray's hit and
+    crossing never change; counted in `tsdf.stop_checks`, the steps in
+    `tsdf.march_steps`). Returns ([H*W, 3] points, normals, colours),
+    NaN where there is no hit, and the steps the march took."""
+    dev = tsdf.device
+    R = tsdf.shape[0]
+    dirs, o, rel_o, vl, inv_vl, t_far, ray0, step = _rays(
+        K, cam_to_world, voxel_length, sdf_trunc, origin, R, H, W)
 
     def nearest(p_rel):
         gi = torch.floor(p_rel * inv_vl).to(torch.int64)
@@ -337,15 +458,10 @@ def raycast(tsdf, weight, color_vol, K, cam_to_world, voxel_length,
         e[a] = vl
         n.append(trilinear_obs(pts + e)[0] - trilinear_obs(pts - e)[0])
     n = torch.stack(n, -1)
-    n = n / torch.linalg.norm(n, dim=-1, keepdim=True).clamp(min=1e-12)
 
     g = ((pts - origin) * inv_vl - 0.5).to(torch.int64).clamp(0, R - 1)
     colors = _gather3(color_vol, g)
-
-    keep = found[..., None]
-    return (torch.where(keep, pts, math.nan).reshape(-1, 3),
-            torch.where(keep, n, math.nan).reshape(-1, 3),
-            torch.where(keep, colors, math.nan).reshape(-1, 3), steps)
+    return _finish(pts, n, colors, found) + (steps,)
 
 
 def mc_classify_blocks(fields, weights, side: int) -> torch.Tensor:

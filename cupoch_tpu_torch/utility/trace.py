@@ -44,10 +44,11 @@ Counters: `registration.branch.<branch>`, `registration.iterations`,
 `gridhash.queries`, `gridhash.slots` (candidate pairs scanned),
 `gridhash.rescued` (queries the finest level did not settle),
 `bruteforce.pairs` (the (query, point) pairs `knn.nn_search` scored),
-`tsdf.march_steps`, `tsdf.stop_checks`,
-`host.reads`, `host.read_bytes`,
+`tsdf.march_steps`, `tsdf.stop_checks` (the plain raycast's stop
+tests; the kernel makes none), `host.reads`, `host.read_bytes`,
 `kernel.builds`; `counters()` adds the kernel wrappers' launch counts
-(`launches.<kernel>`) and the k-NN grid cache's statistics
+(`launches.<kernel>`; `launches.tsdf_raycast` is one a raycast on the
+card) and the k-NN grid cache's statistics
 (`grid_cache.<stat>`), read where they live.
 """
 from __future__ import annotations
@@ -240,16 +241,19 @@ def spans() -> list:
 
 def launch_counts() -> dict:
     """This process's kernel launches since the counters were set to 0."""
+    from ..integration import tsdf_ops
     from ..knn import (bruteforce, poolgrid_slot, rollgrid_nn, rungrid_fused,
                        rungrid_gmm)
     return {"slot": poolgrid_slot.launches,
             "fused_corres": rungrid_fused.launches["corres"],
             "fused_gn": rungrid_fused.launches["gn"],
             "gmm": rungrid_gmm.launches, "nn": rollgrid_nn.launches,
-            "bruteforce_nn": bruteforce.launches}
+            "bruteforce_nn": bruteforce.launches,
+            "tsdf_raycast": tsdf_ops.launches}
 
 
 def reset_launch_counts() -> None:
+    from ..integration import tsdf_ops
     from ..knn import (bruteforce, poolgrid_slot, rollgrid_nn, rungrid_fused,
                        rungrid_gmm)
     poolgrid_slot.launches = 0
@@ -257,6 +261,7 @@ def reset_launch_counts() -> None:
     rungrid_gmm.launches = 0
     rollgrid_nn.launches = 0
     bruteforce.launches = 0
+    tsdf_ops.launches = 0
 
 
 def counters() -> dict:

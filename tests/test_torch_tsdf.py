@@ -13,7 +13,10 @@ misses, ROADMAP Queue 3) lie on the scene's planes within half a voxel,
 as the shared ones do; the marching-cubes mesh's sorted vertices within
 1e-5 with equal triangle counts; the extracted clouds within 1e-5; a
 JAX volume carried over by `UniformTSDFVolume.from_numpy` raycasts as
-the JAX volume does (at the reference's refinement).
+the JAX volume does (at the reference's refinement). `raycast` on CPU
+tensors is `raycast_plain` and launches no kernel; `march_steps`, the
+kernel's rule for the steps it reports, gives the plain march's steps
+for any `max_steps`, from inside the volume and from outside it.
 """
 import numpy as np
 import pytest
@@ -29,6 +32,7 @@ from cupoch_tpu_torch.geometry import TriangleMesh as TMesh
 from cupoch_tpu_torch.integration import TSDFVolumeColorType as TColorType
 from cupoch_tpu_torch.integration import UniformTSDFVolume as TVolume
 from cupoch_tpu_torch.integration import tsdf_ops as ttsdf
+from cupoch_tpu_torch.utility import trace
 from torch_port_bridge import intrinsic as to_port_intrinsic
 from torch_port_bridge import rgbd as to_port_rgbd
 
@@ -138,6 +142,107 @@ def test_torch_raycast_with_reference_refinement_matches_jax(
                                project_valid_depth_only=False),
                     tv.raycast(to_port_intrinsic(intr), extrinsic,
                                project_valid_depth_only=False))
+
+def _outside_view():
+    """World-to-camera of a camera 1.5 m to the side of and 3 m behind
+    frame 0's, outside the volume's box [-2, 2] x [-2, 2] x [0, 4]: the
+    rays to its right miss the box."""
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 3] = (1.5, 0.0, -3.0)
+    return np.linalg.inv(pose).astype(np.float32)
+
+
+VIEWS = {"inside": FRAMES[0][1], "outside": _outside_view()}
+
+
+def _plain(tv, extrinsic, max_steps):
+    """`raycast_plain` of the port volume `tv` seen through the corner's
+    camera from the world-to-camera `extrinsic`, as
+    `UniformTSDFVolume.raycast` calls it."""
+    intr = to_port_intrinsic(corner.intrinsic())
+    cam = np.linalg.inv(extrinsic).astype(np.float32)
+    return ttsdf.raycast_plain(
+        tv.tsdf, tv.weight, tv.color,
+        torch.as_tensor(np.asarray(intr.intrinsic_matrix, np.float32)),
+        torch.as_tensor(cam), tv.voxel_length, tv.sdf_trunc, tv._corner(),
+        intr.height, intr.width, max_steps)
+
+
+def _full_steps(tv):
+    return int(np.ceil(tv.length * np.sqrt(3.0) / (0.5 * tv.sdf_trunc))) + 1
+
+
+@pytest.fixture(scope="module")
+def slowest(volumes):
+    """Each view's slowest ray's march steps: the plain march reports
+    them when it tests for the stop after every step."""
+    _, tv = volumes
+    every = ttsdf.STOP_CHECK_STEPS
+    ttsdf.STOP_CHECK_STEPS = 1
+    try:
+        out = {v: _plain(tv, e, _full_steps(tv))[3] for v, e in VIEWS.items()}
+    finally:
+        ttsdf.STOP_CHECK_STEPS = every
+    assert all(s < _full_steps(tv) for s in out.values())
+    return out
+
+
+@pytest.mark.parametrize("view", list(VIEWS))
+@pytest.mark.parametrize("max_steps", [
+    "0", "1", "15", "16", "17", "slowest-1", "slowest", "slowest+1",
+    "full"])
+def test_torch_march_steps_rule_gives_the_plain_steps(volumes, slowest,
+                                                      view, max_steps):
+    """The kernel reports `march_steps` of its slowest ray's steps, or of
+    max_steps + 1 where a ray never stops: what the plain march, which
+    tests for the stop every STOP_CHECK_STEPS steps, reports."""
+    _, tv = volumes
+    s = slowest[view]
+    m = {"slowest-1": s - 1, "slowest": s, "slowest+1": s + 1,
+         "full": _full_steps(tv)}.get(max_steps)
+    m = int(max_steps) if m is None else m
+    kernel_slowest = s if s <= m else m + 1
+    assert ttsdf.march_steps(kernel_slowest, m) == _plain(
+        tv, VIEWS[view], m)[3]
+    if view == "outside":
+        t_far, ray0 = ttsdf._rays(
+            torch.as_tensor(np.asarray(corner.intrinsic().intrinsic_matrix,
+                                       np.float32)),
+            torch.as_tensor(np.linalg.inv(VIEWS[view])), tv.voxel_length,
+            tv.sdf_trunc, tv._corner(), tv.resolution, corner.H,
+            corner.W)[5:7]
+        assert bool((ray0 > t_far).any()) and bool((ray0 < t_far).any())
+
+
+def test_torch_raycast_on_the_cpu_is_the_plain_version(volumes):
+    """On CPU tensors `raycast` launches no kernel and makes the plain
+    march's stop tests; its output is `raycast_plain`'s, bit for bit."""
+    _, tv = volumes
+    extrinsic = VIEWS["inside"]
+    trace.reset_launch_counts()
+    trace.enable(reset=True)
+    try:
+        got = tv.raycast(to_port_intrinsic(corner.intrinsic()), extrinsic,
+                         project_valid_depth_only=False)
+        c = trace.counters()
+    finally:
+        trace.disable()
+    assert c["launches.tsdf_raycast"] == 0 and c["tsdf.stop_checks"] > 0
+    want = _plain(tv, extrinsic, _full_steps(tv))
+    assert tv.last_march_steps == want[3] == c["tsdf.march_steps"]
+    got_n = got.normals
+    for g, w in ((got.points, want[0]), (got_n, want[1])):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+def test_torch_raycast_refuses_a_device_without_a_kernel():
+    meta = dict(dtype=torch.float32, device="meta")
+    grid = torch.zeros((4, 4, 4), **meta)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ttsdf.raycast(grid, grid, torch.zeros((4, 4, 4, 3), **meta),
+                      torch.eye(3, **meta), torch.eye(4, **meta), 0.1, 0.2,
+                      torch.zeros(3, **meta), 4, 4, 10)
+
 
 def test_torch_mesh_matches_jax(volumes):
     jv, tv = volumes
